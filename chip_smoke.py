@@ -12,16 +12,20 @@ exits non-zero without the final result line:
              ``src/repro_torch/csrc`` (``-Xptxas -v`` report printed).
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the sweep shapes of the JAX kernel tests and at the main
-             path's shapes, for bf16, fp8 and int8 pools, plus poison-page
-             cases; then kernel, plain and SDPA times at the main-path
-             shapes beside the kernel's bound.
+             path's shapes, for bf16, fp8 and int8 pools, plus split-KV
+             edges, poison pages and NaN past the prefill edges; then
+             kernel, plain and SDPA times at the main-path shapes beside
+             the kernel's bound: event time of a loop of wrapper calls and
+             device time of the kernels alone (torch.profiler), the kernel
+             and SDPA timed in turns.
 4. model   — Qwen2.5-14B at full width and 2 layers, paged forward once
              through the kernels and once through the plain attention.
 5. serve   — full Qwen2.5-14B (48 layers, random weights from a seed)
              serving 8 requests through ServeSession(EngineBackend,
              DynaServePolicy) on two instances that share the card; the
-             kernels' launch counters are zeroed just before this run and
-             read just after.  Then the same requests under colocation.
+             kernels' launch counters (and the prefill kernel's per-body
+             counters) are zeroed just before this run and read just
+             after.  Then the same requests under colocation.
 
 Optional, not in the default run: ``--phases profile`` profiles prefill
 and decode steps of one Qwen2.5-14B engine (device time by kernel class
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -132,7 +137,7 @@ class KernelChecks:
 
     # ---- paged decode ----
     def decode_case(self, B, H, KV, hd, page, n_pp, dtype, lens=None,
-                    prec=None, main_path=False, what="", zero_table=False):
+                    prec=None, main_path=False, what="", zero_rows=()):
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.paged_decode_attention import \
@@ -149,8 +154,8 @@ class KernelChecks:
             vp, vs = self.quant(vp, prec)
         tbl = self.perm(n_pages)[:B * n_pp].reshape(B, n_pp).to(
             torch.int32).cuda()
-        if zero_table:
-            tbl.zero_()
+        for b in zero_rows:          # padded inactive slots: table entry 0
+            tbl[b].zero_()
         if lens is None:
             lens = torch.randint(1, page * n_pp + 1, (B,),
                                  generator=self.cpu_gen)
@@ -271,6 +276,41 @@ class KernelChecks:
         return self.record("chunked_prefill_attention", dirty, clean, 0.0,
                            f"poison past causal frontier {dtype} {prec}")
 
+    def prefill_nan_edge(self, B, Tq, S, H, KV, hd, dtype, offsets,
+                         prec=None, pad=40):
+        """q, k and v are row views of larger buffers whose rows past Tq
+        (q) and past S (k, v) of every batch row hold NaN (int8 codes:
+        the extreme code).  The kernel reads through the views' strides;
+        the output must equal, bit for bit, that of clean contiguous
+        copies."""
+        torch = self.torch
+        from repro_torch.kernels.chunked_prefill_attention import \
+            chunked_prefill_attention
+        from repro_torch.kernels.ref import as_indexable
+        qb = self.randn(B, Tq + pad, H, hd, dtype=dtype)
+        kb = self.randn(B, S + pad, KV, hd)
+        vb = self.randn(B, S + pad, KV, hd)
+        ks = vs = None
+        if prec is None:
+            kb, vb = kb.to(dtype), vb.to(dtype)
+        else:
+            kb, ks = self.quant(kb, prec)
+            vb, vs = self.quant(vb, prec)
+            ks, vs = ks[:, :S].contiguous(), vs[:, :S].contiguous()
+        off = torch.as_tensor(offsets, dtype=torch.int32).cuda()
+        clean = chunked_prefill_attention(
+            qb[:, :Tq].clone(), kb[:, :S].clone(), vb[:, :S].clone(), off,
+            ks, vs)
+        qb[:, Tq:] = float("nan")
+        bad = 127.0 if prec == "int8" else float("nan")
+        for t in (kb, vb):
+            as_indexable(t)[:, S:] = as_indexable(torch.full_like(
+                t[:, S:], bad, dtype=torch.float32).to(t.dtype))
+        dirty = chunked_prefill_attention(qb[:, :Tq], kb[:, :S], vb[:, :S],
+                                          off, ks, vs)
+        return self.record("chunked_prefill_attention", dirty, clean, 0.0,
+                           f"NaN past Tq {Tq} and S {S} {dtype} {prec}")
+
 
 def run_kernel_checks(seed: int):
     import torch
@@ -323,7 +363,35 @@ def run_kernel_checks(seed: int):
     # inactive padded slots: length 1 and a zero table row
     kc.decode_case(B, H, KV, hd, page, 4, bf16, lens=[1] * B,
                    main_path=True, what="inactive padded slots",
-                   zero_table=True)
+                   zero_rows=range(B))
+    # split-KV edges at the main path's table width (spans of SPLIT = 256
+    # tokens, 32 pages of 8): lengths 1, page-1, SPLIT-1, SPLIT, SPLIT+1
+    # and the whole table, beside two padded inactive slots; poison pages
+    # past lengths that end inside a span.  Prefill edges: Tq 1, 130 and
+    # 512; S no multiple of the 128-key tile; S shorter than offset + Tq;
+    # S = 4000, which wraps the 2-stage K/V ring 16 times; NaN past Tq
+    # and S read through row views.  Every pool format.
+    split = 256
+    edge_lens = [1, page - 1, split - 1, split, split + 1, page * n_pp, 1, 1]
+    for prec in (None, "fp8", "int8"):
+        name = prec or "bf16"
+        kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=edge_lens,
+                       prec=prec, zero_rows=(6, 7),
+                       what=f"split edges, {name} pool")
+        kc.decode_poison(B, H, KV, hd, page, 64, bf16,
+                         [1, 7, 100, 255, 257, 300, 385, 511], prec=prec)
+        for Tq, S, offs in [(1, 300, [0, 299]), (130, 300, [170, 250]),
+                            (512, 4000, [0, 3700])]:
+            kc.prefill_case(2, Tq, S, H, KV, hd, bf16, offsets=offs,
+                            prec=prec, what=f"edges Tq {Tq} S {S} offsets "
+                                            f"{offs}, {name} KV")
+        kc.prefill_nan_edge(2, 130, 300, H, KV, hd, bf16, [170, 250],
+                            prec=prec)
+        kc.prefill_nan_edge(2, 512, 1000, H, KV, hd, bf16, [488, 0],
+                            prec=prec)
+    # the other bodies read through row views too
+    kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, bf16, [20, 37])
+    kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, f32, [20, 37])
     log(f"[kernels] {kc.n_cases} cases within tolerance "
         f"(bf16 {TOL['bfloat16']}, f32 {TOL['float32']}, poison exact); "
         f"main-path max abs err: "
@@ -331,15 +399,51 @@ def run_kernel_checks(seed: int):
     return kc.err
 
 
+def device_ms(fn, n: int) -> float:
+    """Device time of one call of ``fn``: the summed duration of every
+    kernel that ``n`` calls launch (both passes of split-KV decode), over
+    ``n``, from torch.profiler's CUDA activity.  Raises if the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / n / 1e3
+
+
+def in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
+    """Event and device times of each callable, taken in turns (a, b, b,
+    a, ...), so that callables timed together see the same card state;
+    only ratios within one run are compared.  Means over the rounds."""
+    ev = {k: [] for k in fns}
+    dev = {k: [] for k in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            ev[name].append(cuda_ms(fns[name], iters))
+            dev[name].append(device_ms(fns[name], iters))
+    return {k: (sum(ev[k]) / rounds, sum(dev[k]) / rounds) for k in fns}
+
+
 def time_kernels(seed: int):
     """Kernel, plain and SDPA times at the main-path shapes (bf16), with
-    each kernel's bound from this run's inputs."""
+    each kernel's bound from this run's inputs: event time of a loop of
+    wrapper calls and device time of the kernels alone, the kernel and
+    SDPA in turns."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import chunked_prefill_attention as cpa
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked_prefill_attention import \
         chunked_prefill_attention
-    from repro_torch.kernels.ops import gather_pages
+    from repro_torch.kernels.ops import gather_pages, quantize_kv
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -347,7 +451,9 @@ def time_kernels(seed: int):
     bf16 = torch.bfloat16
     res = {}
 
-    # paged decode: 8 slots, contexts spread up to 4096
+    # paged decode: 8 slots, page 8, a table of 512 pages (4096 tokens) as
+    # in the serve phase; long contexts spread up to 4096, then short ones
+    # (128-256 tokens, one live span) as the serve phase's decode sees
     B, H, KV, hd, page, n_pp = 8, 40, 8, 128, 8, 512
     n_pages = B * n_pp
     q = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
@@ -355,27 +461,32 @@ def time_kernels(seed: int):
     vp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(bf16)
     tbl = torch.randperm(n_pages, generator=gc).reshape(B, n_pp).to(
         torch.int32).cuda()
-    lens_l = [512, 1024, 1536, 2048, 2560, 3072, 3584, 4096]
-    lens = torch.tensor(lens_l, dtype=torch.int32).cuda()
-    ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, tbl, lens), 50)
-    plain = cuda_ms(lambda: ref.paged_decode_attention_ref(
-        q, kp, vp, tbl, lens), 5)
     kd = gather_pages(kp, tbl).transpose(1, 2).repeat_interleave(H // KV, 1)
     vd = gather_pages(vp, tbl).transpose(1, 2).repeat_interleave(H // KV, 1)
-    mask = (torch.arange(n_pp * page, device="cuda")[None]
-            < lens[:, None])[:, None, None, :]
     qd = q[:, :, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask), 20)
-    ctx = sum(lens_l)
-    n_bytes = (2 * B * H * hd * 2                      # q in, out
-               + 2 * ctx * KV * hd * 2                 # live K and V
-               + sum(-(-n // page) for n in lens_l) * 4 + B * 4)
-    flops = 4 * ctx * H * hd
-    res["paged_decode_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib,
-        **bound(n_bytes, flops),
-        shape=f"B={B} H={H} KV={KV} hd={hd} page={page} contexts={lens_l} bf16")
+    for label, lens_l in (("long", [512, 1024, 1536, 2048, 2560, 3072, 3584,
+                                    4096]),
+                          ("short", [128, 146, 164, 182, 201, 219, 237, 256])):
+        lens = torch.tensor(lens_l, dtype=torch.int32).cuda()
+        mask = (torch.arange(n_pp * page, device="cuda")[None]
+                < lens[:, None])[:, None, None, :]
+        t = in_turns({
+            "kernel": lambda: paged_decode_attention(q, kp, vp, tbl, lens),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask)}, 50)
+        plain = cuda_ms(lambda: ref.paged_decode_attention_ref(
+            q, kp, vp, tbl, lens), 5)
+        ctx = sum(lens_l)
+        n_bytes = (2 * B * H * hd * 2                      # q in, out
+                   + 2 * ctx * KV * hd * 2                 # live K and V
+                   + sum(-(-n // page) for n in lens_l) * 4 + B * 4)
+        r = dict(ms=t["kernel"][0], device_ms=t["kernel"][1], plain_ms=plain,
+                 library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
+                 **bound(n_bytes, 4 * ctx * H * hd),
+                 shape=f"B={B} H={H} KV={KV} hd={hd} page={page} n_pp={n_pp} "
+                       f"contexts={lens_l} bf16")
+        res["paged_decode_attention" + ("" if label == "long" else
+                                        " (short contexts)")] = r
     del kd, vd, kp, vp
 
     # chunked prefill: 8 rows of a 512-token chunk against S=4096
@@ -385,28 +496,51 @@ def time_kernels(seed: int):
     k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
     v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
     off = torch.tensor(offs_l, dtype=torch.int32).cuda()
-    ms = cuda_ms(lambda: chunked_prefill_attention(qp, k, v, off), 10)
-    plain = cuda_ms(lambda: ref.chunked_prefill_attention_ref(
-        qp, k, v, off), 3)
     qd = qp.transpose(1, 2)
     kd = k.transpose(1, 2).repeat_interleave(H // KV, 1)
     vd = v.transpose(1, 2).repeat_interleave(H // KV, 1)
     qpos = off[:, None] + torch.arange(Tq, device="cuda")[None]
     mask = (torch.arange(S, device="cuda")[None, None] <= qpos[..., None])
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask[:, None]), 10)
+    t = in_turns({
+        "kernel": lambda: chunked_prefill_attention(qp, k, v, off),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[:, None])}, 10)
+    plain = cuda_ms(lambda: ref.chunked_prefill_attention_ref(
+        qp, k, v, off), 3)
     visible = sum(min(S, o + i + 1) for o in offs_l for i in range(Tq))
     keys = sum(min(S, o + Tq) for o in offs_l)
     n_bytes = 2 * B * Tq * H * hd * 2 + 2 * keys * KV * hd * 2 + B * 4
-    flops = 4 * visible * H * hd
     res["chunked_prefill_attention"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib,
-        **bound(n_bytes, flops),
+        ms=t["kernel"][0], device_ms=t["kernel"][1], plain_ms=plain,
+        library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
+        **bound(n_bytes, 4 * visible * H * hd),
         shape=f"B={B} Tq={Tq} S={S} H={H} KV={KV} hd={hd} offsets={offs_l} bf16")
+    # quantized pools at the same shape (their codes convert to bf16 in
+    # the kernel, so the same operations bound holds)
+    del kd, vd
+    quant = {}
+    for prec in ("fp8", "int8"):
+        kq, ksq = quantize_kv(k, prec)
+        vq, vsq = quantize_kv(v, prec)
+        before = dict(cpa.body_launches)
+        tq = in_turns({"kernel": lambda: chunked_prefill_attention(
+            qp, kq, vq, off, ksq, vsq)}, 10, rounds=1)["kernel"]
+        quant[prec] = (tq, [b for b in cpa.BODIES
+                            if cpa.body_launches[b] != before[b]])
+        del kq, vq
     for name, r in res.items():
-        log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}) at {r['shape']}")
+        log(f"[time] {name}: kernel {r['ms']:.4f} ms (events), device "
+            f"{r['device_ms']:.4f} ms (torch.profiler); SDPA "
+            f"{r['library_ms']:.4f} ms (events), device "
+            f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['device_ms']:.3f} of it on the device; "
+            f"device time / SDPA device time "
+            f"{r['device_ms'] / r['library_device_ms']:.3f}; at {r['shape']}")
+    for prec, (tq, bodies) in quant.items():
+        log(f"[time] chunked_prefill_attention, {prec} pool ({'/'.join(bodies)} "
+            f"body): {tq[0]:.4f} ms (events), device {tq[1]:.4f} ms, same shape")
+    res.pop("paged_decode_attention (short contexts)")
     return res
 
 
@@ -568,19 +702,26 @@ def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
     reqs = reqs or make_requests(seed, cfg.vocab_size)
     pda.launches = 0
     cpa.launches = 0
+    cpa.body_launches = dict.fromkeys(cpa.BODIES, 0)
     outs, m, moved, wall = serve(cfg, params, reqs, "dynaserve",
                                  n_slots=n_slots, n_pages=n_pages,
                                  max_chunk=max_chunk)
     launches = {"paged_decode_attention": pda.launches,
                 "chunked_prefill_attention": cpa.launches}
+    bodies = dict(cpa.body_launches)
     if moved <= 0:
         raise AssertionError("no KV handoff: DynaServe split no request")
     for name, n in launches.items():
         if n <= 0 and device == "cuda":
             raise AssertionError(f"{name} was not launched on the main path")
     report("dynaserve", m, moved, wall, card)
-    log(f"[serve] main-path kernel launches: {launches}")
+    log(f"[serve] main-path kernel launches: {launches}; "
+        f"chunked_prefill_attention by body: {bodies}")
+    if device == "cuda" and bodies["wgmma"] != cpa.launches:
+        raise AssertionError(f"bf16 prefill launches that missed the wgmma "
+                             f"body: {bodies}")
     if device == "cuda":
+        gc.collect()
         torch.cuda.empty_cache()
     outs_c, m_c, moved_c, wall_c = serve(cfg, params, reqs, "colocation",
                                          n_slots=n_slots, n_pages=n_pages,
@@ -742,6 +883,7 @@ def main(argv=None) -> int:
     launches = {}
     if "serve" in phases:
         launches = run_serve(args.seed, card)
+        gc.collect()     # the sessions' reference cycles hold the weights
         torch.cuda.empty_cache()
     if "profile" in phases:
         run_profile(args.seed, card)
@@ -759,9 +901,11 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": rep,
             "launches": launches.get(name), "max_abs_err": errs.get(name),
-            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "ms": t.get("ms"), "device_ms": t.get("device_ms"),
+            "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            "library_device_ms": t.get("library_device_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

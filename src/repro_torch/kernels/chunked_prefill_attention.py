@@ -5,11 +5,16 @@ It replaces the Pallas TPU kernel
 ``repro/kernels/chunked_prefill_attention.py::chunked_prefill_attention``
 together with its padding wrapper ``ops.chunked_prefill_attention_op``:
 the CUDA kernel masks ragged Tq and S edges itself, so nothing is
-padded.  bf16 queries run on the tensor cores (``mma.sync``); f32
-queries keep f32 arithmetic throughout.  The wrapper checks its inputs,
-allocates the output, and launches on PyTorch's current stream; it
-raises on anything the kernel does not take.  ``launches`` counts the
-launches it made.
+padded.  The kernel picks its body by dtype and shape before it
+launches: bf16 queries at hd 128 on a bf16 pool (the serving path) or
+an fp8 or int8 pool run a TMA + ``wgmma`` body, other bf16 queries (hd
+32 and 64, f32 pools) run ``mma.sync``, and f32 queries keep f32
+arithmetic throughout.  The wrapper checks its inputs, allocates the output, and
+launches on PyTorch's current stream; it raises on anything the kernel
+does not take.  q, k and v may be row views of larger buffers (their
+last two dimensions contiguous): the kernel reads through their strides
+and never past Tq or S.  ``launches`` counts the launches it made and
+``body_launches`` splits them by the body the kernel reported.
 """
 from __future__ import annotations
 
@@ -22,9 +27,13 @@ from repro_torch.kernels import _build
 
 #: kernel launches made by this wrapper (tests and chip_smoke.py reset it)
 launches = 0
+#: the same launches by the body the kernel took, as it reports them
+BODIES = ("fma", "mma_sync", "wgmma")
+body_launches = dict.fromkeys(BODIES, 0)
 
-_SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                     ctypes.c_void_p]
+_SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
+        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+                                ctypes.c_void_p])
 
 
 def _lib():
@@ -36,7 +45,16 @@ def _lib():
     return fn
 
 
-def _aligned(t):
+def _rows(t):
+    """``t`` itself when the kernel can read it through its strides: the
+    last two dimensions contiguous, 16-byte aligned, row strides a
+    multiple of 16 bytes.  Otherwise a contiguous copy."""
+    hd = t.shape[-1]
+    step = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.stride(-2) == hd and t.data_ptr() % 16 == 0
+            and t.stride(0) % step == 0 and t.stride(1) % step == 0):
+        return t
+    t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -73,16 +91,21 @@ def chunked_prefill_attention(q, k, v, offsets, k_scales=None,
     for t in tensors:
         if t.device != q.device:
             raise ValueError("all operands must be on one CUDA device")
-    # the tensor-core body reads 16-byte vectors
-    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
-    out = torch.empty_like(q)
-    fn = _lib()
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(),
-                0 if ks is None else ks.data_ptr(),
-                0 if vs is None else vs.data_ptr(), out.data_ptr(),
-                B, Tq, S, H, KV, hd, _build.dtype_code(q),
-                _build.dtype_code(k), 1.0 / math.sqrt(hd),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    # the tensor-core bodies read 16-byte vectors and TMA boxes
+    q, k, v = (_rows(t) for t in (q, k, v))
+    if k.stride() != v.stride():     # one set of strides serves both
+        k, v = k.contiguous(), v.contiguous()
+    out = torch.empty(B, Tq, H, hd, dtype=q.dtype, device=q.device)
+    body = ctypes.c_int(-1)
+    status = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(),
+                    0 if ks is None else ks.data_ptr(),
+                    0 if vs is None else vs.data_ptr(), out.data_ptr(),
+                    B, Tq, S, H, KV, hd, q.stride(0), q.stride(1),
+                    k.stride(0), k.stride(1), _build.dtype_code(q),
+                    _build.dtype_code(k), 1.0 / math.sqrt(hd),
+                    ctypes.byref(body),
+                    torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "chunked_prefill_attention")
     launches += 1
+    body_launches[BODIES[body.value]] += 1
     return out

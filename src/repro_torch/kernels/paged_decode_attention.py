@@ -3,9 +3,14 @@ in ``csrc/paged_decode_attention.cu``.
 
 It replaces the Pallas TPU kernel
 ``repro/kernels/paged_decode_attention.py::paged_decode_attention``.
-The wrapper checks its inputs, allocates the output, and launches the
-kernel on PyTorch's current stream; it raises on anything the kernel
-does not take.  ``launches`` counts the launches it made.
+The kernel is split-KV: a first pass computes partial softmax states
+(m, l, acc) per span of each sequence and a second pass merges them.
+The wrapper checks its inputs, allocates the output and the f32 partials
+(their span count comes from the table's width, never from the lengths,
+so nothing is read back from the card), and launches on PyTorch's current
+stream; it raises on anything the kernel does not take.  ``launches``
+counts wrapper calls that launched the kernel: one per call, whether the
+call ran one pass (a single span) or both.
 """
 from __future__ import annotations
 
@@ -16,11 +21,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches made by this wrapper (tests and chip_smoke.py reset it)
+#: kernel calls made by this wrapper, one per call (split and merge
+#: passes together); tests and chip_smoke.py reset it
 launches = 0
 
-_SIG = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                     ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                      ctypes.c_void_p]
 
 
 def _lib():
@@ -29,7 +35,9 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = _SIG
         fn.restype = ctypes.c_int
-    return fn
+        lib.paged_decode_attention_splits.argtypes = [ctypes.c_int] * 3
+        lib.paged_decode_attention_splits.restype = ctypes.c_int
+    return lib
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
@@ -68,16 +76,24 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
         if t.device != q.device:
             raise ValueError("all operands must be on one CUDA device")
     q = q.contiguous()
-    kp = k_pages.contiguous()
-    vp = v_pages.contiguous()
+    # the split pass copies 16-byte chunks of the pages
+    kp, vp = (t if t.data_ptr() % 16 == 0 else t.clone()
+              for t in (k_pages.contiguous(), v_pages.contiguous()))
     out = torch.empty_like(q)
-    fn = _lib()
-    status = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
-                lens.data_ptr(), 0 if ks is None else ks.data_ptr(),
-                0 if vs is None else vs.data_ptr(), out.data_ptr(),
-                B, H, KV, hd, page, tbl.shape[1],
-                _build.dtype_code(q), _build.dtype_code(kp),
-                1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _lib()
+    n_pp = tbl.shape[1]
+    n_splits = lib.paged_decode_attention_splits(hd, page, n_pp)
+    part_m = torch.empty(B, H, n_splits, dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(B, H, n_splits, hd, dtype=torch.float32,
+                           device=q.device)
+    status = lib.paged_decode_attention(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
+        lens.data_ptr(), 0 if ks is None else ks.data_ptr(),
+        0 if vs is None else vs.data_ptr(), out.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        B, H, KV, hd, page, n_pp, _build.dtype_code(q), _build.dtype_code(kp),
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_decode_attention")
     launches += 1
     return out

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -141,6 +142,71 @@ def test_paged_decode_ignores_pages_beyond_length():
     tk2[1, 3:], tv2[1, 3:] = 1e6, -1e6       # rows past 11 in page 1
     out2 = tops.paged_decode_attention_op(tq, tk2, tv2, tbl, lens)
     assert torch.equal(out1, out2)
+
+
+def _split_kv_decode(q, k_pages, v_pages, block_tables, lengths, split):
+    """Split-KV decode written out in f32: every span of ``split`` tokens
+    gives a partial (m, l, acc) over its live tokens, or the empty
+    partial (m = -1e30, l = 0, acc = 0) when it starts at or past the
+    length; the merge is M = max m_i, out = sum e^(m_i-M) acc_i /
+    max(sum e^(m_i-M) l_i, 1e-30).  The CUDA kernel's split and merge
+    passes implement this rule (at 256-token spans)."""
+    B, H, hd = q.shape
+    _, page, KV, _ = k_pages.shape
+    S = block_tables.shape[1] * page
+    qpk, n_splits = H // KV, -(-S // split)
+    k = k_pages[block_tables.long()].reshape(B, S, KV, hd).float()
+    v = v_pages[block_tables.long()].reshape(B, S, KV, hd).float()
+    qg = q.float().reshape(B, KV, qpk, hd)
+    m = torch.full((B, KV, qpk, n_splits), tref.NEG_INF)
+    l = torch.zeros(B, KV, qpk, n_splits)
+    acc = torch.zeros(B, KV, qpk, n_splits, hd)
+    for b in range(B):
+        for i in range(n_splits):
+            lo, hi = i * split, min(S, (i + 1) * split, int(lengths[b]))
+            if hi <= lo:
+                continue
+            s = torch.einsum("kgh,skh->kgs", qg[b], k[b, lo:hi]) / hd ** 0.5
+            m[b, ..., i] = s.max(-1).values
+            p = torch.exp(s - m[b, ..., i, None])
+            l[b, ..., i] = p.sum(-1)
+            acc[b, ..., i, :] = torch.einsum("kgs,skh->kgh", p, v[b, lo:hi])
+    w = torch.exp(m - m.max(-1, keepdim=True).values)
+    out = (w[..., None] * acc).sum(-2) / \
+        (w * l).sum(-1).clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("split,page,n_pp,lens", [
+    # length 0 (fully masked), 1, page-1, a span ending mid-page,
+    # split-1, split, split+1 and the whole table; short rows leave
+    # trailing spans empty
+    (16, 8, 5, [0, 1, 7, 13, 15, 16, 17, 40]),
+    (8, 8, 3, [3, 24, 9]),                 # one page per span
+    (12, 4, 10, [0, 5, 11, 12, 13, 40]),   # spans of 3 pages
+])
+def test_split_kv_decode_merge_rule(split, page, n_pp, lens):
+    rng = np.random.default_rng(split * 100 + page + n_pp)
+    B, KV, qpk, hd = len(lens), 2, 5, 32
+    H, n_pages = KV * qpk, B * n_pp + 1
+    jq, tq = _pair(rng, (B, H, hd))
+    jk, tk = _pair(rng, (n_pages, page, KV, hd))
+    jv, tv = _pair(rng, (n_pages, page, KV, hd))
+    jt, tt = _ints(rng.permutation(n_pages)[:B * n_pp].reshape(B, n_pp))
+    jl, tl = _ints(lens)
+    got = _split_kv_decode(tq, tk, tv, tt, tl, split)
+    live = np.asarray(lens) > 0
+    # a fully masked row gives 0; the plain versions softmax over all
+    # -1e30 scores there (uniform weights), so they are held only to
+    # the rows that have tokens
+    assert torch.equal(got[~torch.from_numpy(live)],
+                       torch.zeros_like(got[~torch.from_numpy(live)]))
+    exp_j = np.asarray(jref.paged_decode_attention_ref(jq, jk, jv, jt, jl))
+    exp_t = tref.paged_decode_attention_ref(tq, tk, tv, tt, tl)
+    np.testing.assert_allclose(got[live].numpy(), exp_j[live],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[live].numpy(), exp_t[live].numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
