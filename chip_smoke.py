@@ -11,10 +11,11 @@ exits non-zero without the final result line:
 2. build   — both CUDA kernels compiled by nvcc for sm_90a from
              ``src/repro_torch/csrc`` (``-Xptxas -v`` report printed).
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the sweep shapes of the JAX kernel tests and at the main
-             path's shapes, for bf16, fp8 and int8 pools, plus split-KV
+             at the sweep shapes of the JAX kernel tests and at both
+             serving paths' shapes (Qwen2.5-14B: H 40, KV 8; Qwen3-30B-A3B:
+             H 32, KV 4), for bf16, fp8 and int8 pools, plus split-KV
              edges, poison pages and NaN past the prefill edges; then
-             kernel, plain and SDPA times at the main-path shapes beside
+             kernel, plain and SDPA times at both paths' shapes beside
              the kernel's bound: event time of a loop of wrapper calls and
              device time of the kernels alone (torch.profiler), the kernel
              and SDPA timed in turns.
@@ -26,10 +27,25 @@ exits non-zero without the final result line:
              kernels' launch counters (and the prefill kernel's per-body
              counters) are zeroed just before this run and read just
              after.  Then the same requests under colocation.
+6. moe     — Qwen3-30B-A3B: (a) one MoE layer at full width in f32, card
+             against CPU on the same weights (identical routing but for
+             counted near-ties); (b) two layers at full width in bf16,
+             paged forward through the kernels and through the plain
+             attention on the same routing; (c) all 48 layers serving the
+             serve phase's 8 requests through ServeSession(EngineBackend,
+             DynaServePolicy) on two instances sharing the card and one
+             set of weights, launch counters zeroed just before and read
+             just after, dropped (token, k) MoE slots counted.
+7. http    — the port's ServingServer over a fresh session on those
+             weights: two /v1/completions, one streamed
+             /v1/chat/completions, /metrics, clean shutdown.
+8. launch  — ``repro_torch.launch.serve.main(["--smoke", "--open-loop",
+             "--overlap"])`` in-process: the smoke-config path users start.
 
 Optional, not in the default run: ``--phases profile`` profiles prefill
-and decode steps of one Qwen2.5-14B engine (device time by kernel class
-and the device's idle share).
+and decode steps of one Qwen2.5-14B engine and one Qwen3-30B-A3B engine
+(device time by kernel class, MoE routing and dispatch apart, and the
+device's idle share).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit and the one before that the
@@ -48,7 +64,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "model", "serve")      # the default run
+PHASES = ("kernels", "model", "serve", "moe", "http", "launch")  # default
 EXTRA_PHASES = ("profile",)                 # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
@@ -68,6 +84,10 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # those differences pass through two layers of bf16 products; 0.1 is 7%
 # of the logits' std.
 MODEL_TOL = 0.1
+
+
+MOE_PATH = "qwen3-moe-30b-a3b"
+KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
 
 
 def log(*a):
@@ -108,8 +128,8 @@ class KernelChecks:
         self.torch = torch
         self.gen = torch.Generator(device="cuda").manual_seed(seed)
         self.cpu_gen = torch.Generator().manual_seed(seed)
-        self.err = {"paged_decode_attention": 0.0,
-                    "chunked_prefill_attention": 0.0}
+        # max abs error at each serving path's shapes, by kernel
+        self.err = {}
         self.n_cases = 0
 
     def randn(self, *shape, dtype=None):
@@ -131,7 +151,8 @@ class KernelChecks:
             raise AssertionError(f"{name} {what}: max abs err {err:.3e} "
                                  f"> tol {tol:.1e}")
         if main_path:
-            self.err[name] = max(self.err[name], err)
+            errs = self.err.setdefault(main_path, dict.fromkeys(KERNELS, 0.0))
+            errs[name] = max(errs[name], err)
         self.n_cases += 1
         return err
 
@@ -344,26 +365,30 @@ def run_kernel_checks(seed: int):
         kc.decode_poison(1, 4, 2, 32, 8, 4, f32, [11], prec=prec)
     kc.decode_poison(1, 4, 2, 32, 8, 4, f32, [11])
     kc.prefill_poison(1, 6, 24, 4, 2, 32, f32, [4])
-    # main-path shapes: Qwen2.5-14B heads, 8 slots, page 8, contexts to
-    # 4096, chunks to 512
-    B, H, KV, hd, page, n_pp = 8, 40, 8, 128, 8, 512
-    lens = [1, 17, 300, 1024, 2047, 3000, 4095, 4096]
-    for prec in (None, "fp8", "int8"):
-        kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=lens,
-                       prec=prec, main_path=True,
-                       what=f"main path {prec or 'bf16'} pool")
-        kc.decode_poison(B, H, KV, hd, page, 64, bf16,
-                         [1, 9, 100, 200, 255, 256, 511, 512], prec=prec)
-        kc.prefill_case(B, 512, 4096, H, KV, hd, bf16,
-                        offsets=[0, 0, 512, 1000, 1536, 2048, 3000, 3584],
-                        prec=prec, main_path=True,
-                        what=f"main path {prec or 'bf16'} KV")
-        kc.prefill_poison(2, 512, 2048, H, KV, hd, bf16, [0, 1000],
-                          prec=prec)
-    # inactive padded slots: length 1 and a zero table row
-    kc.decode_case(B, H, KV, hd, page, 4, bf16, lens=[1] * B,
-                   main_path=True, what="inactive padded slots",
-                   zero_rows=range(B))
+    # both serving paths' shapes: 8 slots, page 8, contexts to 4096,
+    # chunks of 512; Qwen2.5-14B (H 40, KV 8, 5 query heads a KV head) and
+    # Qwen3-30B-A3B (H 32, KV 4, 8 query heads a KV head)
+    B, hd, page, n_pp = 8, 128, 8, 512
+    for path, H, KV, lens in (
+            ("qwen2.5-14b", 40, 8, [1, 17, 300, 1024, 2047, 3000, 4095, 4096]),
+            (MOE_PATH, 32, 4, [128, 300, 777, 1024, 2047, 3000, 4095, 4096])):
+        for prec in (None, "fp8", "int8"):
+            kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=lens,
+                           prec=prec, main_path=path,
+                           what=f"{path} {prec or 'bf16'} pool")
+            kc.decode_poison(B, H, KV, hd, page, 64, bf16,
+                             [1, 9, 100, 200, 255, 256, 511, 512], prec=prec)
+            kc.prefill_case(B, 512, 4096, H, KV, hd, bf16,
+                            offsets=[0, 0, 512, 1000, 1536, 2048, 3000, 3584],
+                            prec=prec, main_path=path,
+                            what=f"{path} {prec or 'bf16'} KV")
+            kc.prefill_poison(2, 512, 2048, H, KV, hd, bf16, [0, 1000],
+                              prec=prec)
+        # inactive padded slots: length 1 and a zero table row
+        kc.decode_case(B, H, KV, hd, page, 4, bf16, lens=[1] * B,
+                       main_path=path, what=f"{path} inactive padded slots",
+                       zero_rows=range(B))
+    H, KV = 40, 8
     # split-KV edges at the main path's table width (spans of SPLIT = 256
     # tokens, 32 pages of 8): lengths 1, page-1, SPLIT-1, SPLIT, SPLIT+1
     # and the whole table, beside two padded inactive slots; poison pages
@@ -394,9 +419,12 @@ def run_kernel_checks(seed: int):
     kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, f32, [20, 37])
     log(f"[kernels] {kc.n_cases} cases within tolerance "
         f"(bf16 {TOL['bfloat16']}, f32 {TOL['float32']}, poison exact); "
-        f"main-path max abs err: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in kc.err.items()))
-    return kc.err
+        f"max abs err at the serving paths' shapes: "
+        + "; ".join(f"{path}: " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in errs.items())
+                    for path, errs in kc.err.items()))
+    return {name: max(errs[name] for errs in kc.err.values())
+            for name in KERNELS}
 
 
 def device_ms(fn, n: int) -> float:
@@ -432,11 +460,11 @@ def in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
     return {k: (sum(ev[k]) / rounds, sum(dev[k]) / rounds) for k in fns}
 
 
-def time_kernels(seed: int):
-    """Kernel, plain and SDPA times at the main-path shapes (bf16), with
-    each kernel's bound from this run's inputs: event time of a loop of
-    wrapper calls and device time of the kernels alone, the kernel and
-    SDPA in turns."""
+def time_kernels(seed: int, path: str, H: int, KV: int):
+    """Kernel, plain and SDPA times at one serving path's shapes (bf16,
+    ``H`` query and ``KV`` key/value heads), with each kernel's bound from
+    this run's inputs: event time of a loop of wrapper calls and device
+    time of the kernels alone, the kernel and SDPA in turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import chunked_prefill_attention as cpa
@@ -454,7 +482,7 @@ def time_kernels(seed: int):
     # paged decode: 8 slots, page 8, a table of 512 pages (4096 tokens) as
     # in the serve phase; long contexts spread up to 4096, then short ones
     # (128-256 tokens, one live span) as the serve phase's decode sees
-    B, H, KV, hd, page, n_pp = 8, 40, 8, 128, 8, 512
+    B, hd, page, n_pp = 8, 128, 8, 512
     n_pages = B * n_pp
     q = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
     kp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(bf16)
@@ -529,7 +557,7 @@ def time_kernels(seed: int):
                             if cpa.body_launches[b] != before[b]])
         del kq, vq
     for name, r in res.items():
-        log(f"[time] {name}: kernel {r['ms']:.4f} ms (events), device "
+        log(f"[time] {path} {name}: kernel {r['ms']:.4f} ms (events), device "
             f"{r['device_ms']:.4f} ms (torch.profiler); SDPA "
             f"{r['library_ms']:.4f} ms (events), device "
             f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
@@ -538,7 +566,7 @@ def time_kernels(seed: int):
             f"device time / SDPA device time "
             f"{r['device_ms'] / r['library_device_ms']:.3f}; at {r['shape']}")
     for prec, (tq, bodies) in quant.items():
-        log(f"[time] chunked_prefill_attention, {prec} pool ({'/'.join(bodies)} "
+        log(f"[time] {path} chunked_prefill_attention, {prec} pool ({'/'.join(bodies)} "
             f"body): {tq[0]:.4f} ms (events), device {tq[1]:.4f} ms, same shape")
     res.pop("paged_decode_attention (short contexts)")
     return res
@@ -678,15 +706,44 @@ def serve(cfg, params, reqs, policy: str, *, n_slots=8, n_pages=4096,
     return outs, sess.metrics(), backend.kv_bytes_moved, wall
 
 
+def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
+                  **sizes):
+    """Serve through DynaServe (a main path) with the kernels' launch
+    counters zeroed just before and read just after.  Fails without a KV
+    handoff, and on the card when a kernel was not launched or a prefill
+    launch missed the ``wgmma`` body.  Returns (token streams, launches
+    by kernel)."""
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels import paged_decode_attention as pda
+    pda.launches = 0
+    cpa.launches = 0
+    cpa.body_launches = dict.fromkeys(cpa.BODIES, 0)
+    outs, m, moved, wall = serve(cfg, params, reqs, "dynaserve", **sizes)
+    launches = {"paged_decode_attention": pda.launches,
+                "chunked_prefill_attention": cpa.launches}
+    bodies = dict(cpa.body_launches)
+    if moved <= 0:
+        raise AssertionError("no KV handoff: DynaServe split no request")
+    report(label, m, moved, wall, card)
+    log(f"[serve] {label} kernel launches: {launches}; "
+        f"chunked_prefill_attention by body: {bodies}")
+    if device == "cuda":
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{cfg.name} path")
+        if bodies["wgmma"] != cpa.launches:
+            raise AssertionError(f"bf16 prefill launches that missed the "
+                                 f"wgmma body: {bodies}")
+    return outs, launches
+
+
 def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
               n_pages=4096, max_chunk=512, reqs=None):
     """Serve through DynaServe (the main path, counted) then colocation.
     Returns the main path's launch counts."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import chunked_prefill_attention as cpa
-    from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.models.model import init_params
     cfg = cfg or get_config("qwen2.5-14b")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -700,26 +757,9 @@ def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
         f"{cfg.vocab_size}, {cfg.dtype}: {n_params / 1e9:.3f}B params "
         f"generated in {time.monotonic() - t0:.1f} s")
     reqs = reqs or make_requests(seed, cfg.vocab_size)
-    pda.launches = 0
-    cpa.launches = 0
-    cpa.body_launches = dict.fromkeys(cpa.BODIES, 0)
-    outs, m, moved, wall = serve(cfg, params, reqs, "dynaserve",
-                                 n_slots=n_slots, n_pages=n_pages,
-                                 max_chunk=max_chunk)
-    launches = {"paged_decode_attention": pda.launches,
-                "chunked_prefill_attention": cpa.launches}
-    bodies = dict(cpa.body_launches)
-    if moved <= 0:
-        raise AssertionError("no KV handoff: DynaServe split no request")
-    for name, n in launches.items():
-        if n <= 0 and device == "cuda":
-            raise AssertionError(f"{name} was not launched on the main path")
-    report("dynaserve", m, moved, wall, card)
-    log(f"[serve] main-path kernel launches: {launches}; "
-        f"chunked_prefill_attention by body: {bodies}")
-    if device == "cuda" and bodies["wgmma"] != cpa.launches:
-        raise AssertionError(f"bf16 prefill launches that missed the wgmma "
-                             f"body: {bodies}")
+    outs, launches = serve_counted(cfg, params, reqs, card, device,
+                                   "dynaserve", n_slots=n_slots,
+                                   n_pages=n_pages, max_chunk=max_chunk)
     if device == "cuda":
         gc.collect()
         torch.cuda.empty_cache()
@@ -754,6 +794,354 @@ def report(name, m, moved, wall, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: Qwen3-30B-A3B (MoE)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def moe_routing(tape=None, replay=None, flips=None, dropped=None):
+    """Watch, and for a comparison steer, the routing of the port's
+    ``moe_fwd`` (the port itself never does this).  Each ``moe_route``
+    call appends its decisions to ``tape``.  With ``replay`` (an earlier
+    tape of the same calls) a call takes the recorded experts, ranks and
+    keeps instead of its own, its gate weights renormalised from its own
+    probabilities, and appends to ``flips`` the count of tokens whose own
+    top-k differed.  ``dropped`` (a list of a device tensor and an int)
+    sums the dropped (token, k) slots without reading anything back, and
+    all slots."""
+    from repro_torch.models import layers
+    route = layers.moe_route
+
+    def watched(p, xf, cfg, capacity_factor):
+        r = route(p, xf, cfg, capacity_factor)
+        if dropped is not None:
+            dropped[0] = dropped[0] + (~r["keep"]).sum()
+            dropped[1] += r["keep"].numel()
+        if replay is not None:
+            ref = replay[len(flips)]
+            flips.append((r["gate_idx"] != ref["gate_idx"]).any(-1).sum())
+            w = r["probs"].gather(1, ref["gate_idx"])
+            w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+            r = dict(ref, probs=r["probs"],
+                     gate_w=w * ref["keep"].to(w.dtype))
+        if tape is not None:
+            tape.append({k: r[k] for k in ("gate_idx", "pos_in_e", "keep",
+                                            "cap")})
+        return r
+
+    layers.moe_route = watched
+    try:
+        yield
+    finally:
+        layers.moe_route = route
+
+
+# One MoE layer in f32 (TF32 off), card against CPU on the same weights:
+# the router and expert products differ only in the order of their f32
+# sums (2048 and 768 terms, relative errors near 1e-6), so the outputs of
+# tokens routed alike agree to 1e-4 of the output's largest magnitude; a
+# routing or dispatch fault moves whole expert outputs.  A token may
+# route differently only where two of its probabilities around its k-th
+# choice lie within NEAR_TIE, which the two sums can order either way.
+MOE_LAYER_RTOL = 1e-4
+NEAR_TIE = 1e-5
+# Two full-width layers in bf16, kernels vs plain attention on the same
+# routing, max abs error of the f32 logits (std ~0.9): as in the
+# Qwen2.5-14B check, the two attentions' bf16 outputs differ by single
+# roundings, which reach the final hidden state's last bits; the logits
+# are bf16 products, so the largest of them (several std) then differ by
+# a few of their own bf16 steps (2**-5 to 2**-4 there), whatever the std.
+# The bound is the 14B check's 0.1, 11% of this std; the 1/sqrt(E)
+# expert scale makes the MoE outputs larger than the attention outputs,
+# but the final norm rescales them.
+MOE_MODEL_TOL = 0.1
+
+
+def run_moe_layer_check(seed: int, cfg=None, device="cuda"):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe_fwd, moe_route
+    from repro_torch.models.model import init_params
+    cfg = (cfg or get_config(MOE_PATH)).with_(n_layers=1, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = init_params(cfg, gen, device=device)["layers"][0]["mlp"]
+    x = torch.randn(1, 256, cfg.d_model, generator=gen, device=device)
+    ph = {k: v.cpu() for k, v in p.items()}
+    cf = cfg.moe_capacity_factor
+    with torch.no_grad():
+        yc, aux_c = moe_fwd(p, x, cfg)
+        yh, aux_h = moe_fwd(ph, x.cpu(), cfg)
+        rc = moe_route(p, x[0], cfg, cf)
+        rh = moe_route(ph, x[0].cpu(), cfg, cf)
+    yc, rc = yc.cpu(), {k: v.cpu() if torch.is_tensor(v) else v
+                        for k, v in rc.items()}
+    K = cfg.moe_top_k
+    top = torch.sort(rh["probs"], dim=-1, descending=True).values[:, :K + 1]
+    near = ((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(-1)
+    flipped = (rc["gate_idx"] != rh["gate_idx"]).any(-1)
+    if (flipped & ~near).any():
+        raise AssertionError(f"moe layer: {int((flipped & ~near).sum())} "
+                             f"tokens routed differently on the card "
+                             f"without a near-tie")
+    # a flipped token can change the ranks (and keeps) of later slots in
+    # the experts it moved between; compare keeps outside those experts
+    touched = torch.zeros(cfg.moe_experts, dtype=torch.bool)
+    touched[rc["gate_idx"][flipped].flatten()] = True
+    touched[rh["gate_idx"][flipped].flatten()] = True
+    clean = ~touched[rh["gate_idx"]]
+    if not torch.equal(rc["keep"][clean], rh["keep"][clean]):
+        raise AssertionError("moe layer: capacity keeps differ on the card")
+    same = (~flipped & (rc["keep"] == rh["keep"]).all(-1))
+    scale = float(yh.abs().max())
+    err = float((yc - yh)[0, same].abs().max())
+    if not math.isfinite(err) or err > MOE_LAYER_RTOL * scale:
+        raise AssertionError(f"moe layer: max abs err {err:.3e} > "
+                             f"{MOE_LAYER_RTOL} x {scale:.3e}")
+    log(f"[moe] layer check, {cfg.name} (d_model {cfg.d_model}, "
+        f"{cfg.moe_experts} experts top-{K}, expert d_ff {cfg.moe_d_ff}), "
+        f"f32, 256 tokens, capacity {rc['cap']}: card vs CPU routing "
+        f"identical for {int((~flipped).sum())}/256 tokens, "
+        f"{int(flipped.sum())} differ, all at near-ties "
+        f"({int(near.sum())} tokens have a gap under {NEAR_TIE}); dropped "
+        f"slots card {int((~rc['keep']).sum())} CPU "
+        f"{int((~rh['keep']).sum())}; output max abs err {err:.3e} "
+        f"(tol {MOE_LAYER_RTOL} x max |y| {scale:.3e}); aux loss card "
+        f"{float(aux_c):.6f} CPU {float(aux_h):.6f}")
+    del p
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_moe_model_check(seed: int, cfg=None, device="cuda"):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = (cfg or get_config(MOE_PATH)).with_(n_layers=2)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device=device)
+    tape, flips = [], []
+    with torch.no_grad():
+        with moe_routing(tape=tape):
+            got, fed = model_steps(params, cfg, device, seed)
+        with plain_attention(), moe_routing(replay=tape, flips=flips):
+            exp, _ = model_steps(params, cfg, device, seed, feed=fed)
+    worst, std = 0.0, float(exp[0].std())
+    max_logit = max(float(b.abs().max()) for b in exp)
+    for i, (a, b) in enumerate(zip(got, exp)):
+        if a.shape != (2, 1, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"moe model step {i}: bad logits {a.shape}")
+        worst = max(worst, float((a - b).abs().max()))
+    n_flips = int(sum(int(f) for f in flips))
+    if worst > MOE_MODEL_TOL:
+        raise AssertionError(f"moe model logits kernels vs plain: max abs "
+                             f"err {worst:.3e} > {MOE_MODEL_TOL}")
+    log(f"[moe] {cfg.name}, 2 layers, {cfg.dtype}: {len(got)} steps "
+        f"(prefill, mixed, decode); logits kernels vs plain attention on "
+        f"the same routing max abs err {worst:.3e} (tol {MOE_MODEL_TOL}, "
+        f"logits std {std:.3f}, max |logit| {max_logit:.3f}); the plain run "
+        f"would have routed {n_flips} (token, layer) pairs differently "
+        f"(bf16 router logits tie)")
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def run_moe_serve(seed: int, card: str, cfg=None, device="cuda",
+                  n_slots: int = 8, page: int = 8, max_chunk: int = 512,
+                  reqs=None):
+    """Full Qwen3-30B-A3B serving the serve phase's 8 requests through
+    DynaServe on two instances that share the card and one set of
+    weights.  The pools take what the weights leave, less a headroom for
+    a 512-token chunk on every slot, up to the 14B run's 4096 pages an
+    instance.  Returns (launch counts, cfg, params, pages an instance)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.utils.device import torch_dtype
+    cfg = cfg or get_config(MOE_PATH)
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    weights = tensor_bytes(params)
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads hd {cfg.hd}, "
+        f"{cfg.moe_experts} experts top-{cfg.moe_top_k} expert d_ff "
+        f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{weights / 2 / 1e9:.3f}B params, {weights / 1e9:.3f} GB, "
+        f"generated in {time.monotonic() - t0:.1f} s")
+    page_bytes = 2 * cfg.n_layers * page * cfg.n_kv_heads * cfg.hd * \
+        torch.finfo(torch_dtype(cfg.dtype)).bits // 8
+    free, total = (torch.cuda.mem_get_info() if device == "cuda"
+                   else (1 << 40, 1 << 40))
+    headroom = 6 << 30
+    n_pages = min(4096, (free - headroom) // (2 * page_bytes))
+    if n_pages < 1024:
+        raise AssertionError(f"only {free / 1e9:.2f} GB free after the "
+                             f"weights: {n_pages} pages an instance")
+    reqs = reqs or make_requests(seed, cfg.vocab_size)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dropped = [torch.zeros((), dtype=torch.long, device=device), 0]
+    with moe_routing(dropped=dropped):
+        _, launches = serve_counted(cfg, params, reqs, card, device,
+                                    f"{cfg.name} dynaserve", n_slots=n_slots,
+                                    n_pages=n_pages, page=page,
+                                    max_chunk=max_chunk)
+    peak = (torch.cuda.max_memory_allocated() if device == "cuda" else 0)
+    log(f"[moe] memory: weights {weights / 1e9:.3f} GB, pools 2 x "
+        f"{n_pages} pages x {page_bytes} B = "
+        f"{2 * n_pages * page_bytes / 1e9:.3f} GB, "
+        f"{total / 1e9:.3f} GB on the card, max allocated in the run "
+        f"{peak / 1e9:.3f} GB")
+    log(f"[moe] {cfg.name} dropped (token, k) "
+        f"slots over all MoE layers and steps, pads included: "
+        f"{int(dropped[0])} of {dropped[1]} "
+        f"({int(dropped[0]) / dropped[1]:.4f}; capacity factor "
+        f"{cfg.moe_capacity_factor})")
+    return launches, cfg, params, n_pages
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the HTTP front door over the MoE weights
+# ---------------------------------------------------------------------------
+def http_request(port, method, path, body=None, timeout=600.0):
+    """One HTTP/1.1 exchange with the server on localhost (it closes
+    every connection); returns (status, body), chunked bodies
+    de-chunked."""
+    import socket
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    try:
+        payload = b"" if body is None else json.dumps(body).encode()
+        head = f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n"
+        if payload:
+            head += f"Content-Length: {len(payload)}\r\n"
+        sock.sendall(head.encode() + b"\r\n" + payload)
+        data = b""
+        while chunk := sock.recv(65536):
+            data += chunk
+    finally:
+        sock.close()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    status = int(head.split(b" ")[1])
+    if b"chunked" not in head.lower():
+        return status, rest
+    out = b""
+    while rest:
+        size, _, rest = rest.partition(b"\r\n")
+        n = int(size or b"0", 16)
+        if n == 0:
+            break
+        out, rest = out + rest[:n], rest[n + 2:]
+    return status, out
+
+
+def run_http(seed: int, cfg, params, n_pages: int, page: int = 8):
+    import numpy as np
+    from repro_torch.core.session import ServeSession, SessionConfig
+    from repro_torch.engine.backend import EngineBackend
+    from repro_torch.serving.http import ServerConfig, ServingServer
+    from repro_torch.sim.policies import DynaServePolicy
+    max_len = n_pages * page // 8
+    backend = EngineBackend(cfg, params, n_slots=8, max_len=max_len,
+                            page_size=page, n_pages=n_pages, max_chunk=512,
+                            transfer_chunk=128)
+    session = ServeSession(
+        backend, DynaServePolicy(backend.cost, 0.1, transfer_chunk=128),
+        SessionConfig(n_instances=2, slo=0.1, open_loop=False,
+                      max_sim_time=float("inf"), retain_finished=True))
+    srv = ServingServer(ServerConfig(port=0, backend="engine", arch=cfg.name,
+                                     engine_max_len=max_len),
+                        session=session).start()
+    driver_thread = srv.driver._thread
+    rng = np.random.default_rng(seed)
+    t0 = time.monotonic()
+    try:
+        for n_prompt, n_new in ((700, 12), (90, 20)):
+            prompt = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                   n_prompt)]
+            status, body = http_request(srv.port, "POST", "/v1/completions",
+                                        {"prompt": prompt,
+                                         "max_tokens": n_new})
+            out = json.loads(body)
+            n_out = len(out["choices"][0]["text"].split()) \
+                if status == 200 else -1
+            if status != 200 or out["usage"]["completion_tokens"] != n_new \
+                    or n_out != n_new:
+                raise AssertionError(f"/v1/completions: status {status}, "
+                                     f"{n_out} of {n_new} tokens")
+        status, body = http_request(srv.port, "POST", "/v1/chat/completions",
+                                    {"messages": [{"role": "user",
+                                                   "content": "Name three "
+                                                   "uses of a paged KV "
+                                                   "cache."}],
+                                     "max_tokens": 16, "stream": True})
+        events = [line[len("data: "):] for line in body.decode().split("\n")
+                  if line.startswith("data: ")]
+        pieces = [json.loads(e)["choices"][0]["delta"].get("content")
+                  for e in events[:-1]]
+        if status != 200 or events[-1:] != ["[DONE]"] or \
+                len([p for p in pieces if p]) != 16:
+            raise AssertionError(f"streamed chat: status {status}, "
+                                 f"{len(events)} events")
+        status, body = http_request(srv.port, "GET", "/metrics")
+        done = sum(float(line.rsplit(" ", 1)[1])
+                   for line in body.decode().splitlines()
+                   if line.startswith("dynaserve_requests_total{")
+                   and 'outcome="done"' in line)
+        if status != 200 or done != 3:
+            raise AssertionError(f"/metrics: status {status}, {done} "
+                                 f"completed requests")
+    finally:
+        srv.stop()
+    if driver_thread.is_alive() or srv._thread is not None:
+        raise AssertionError("the server did not shut down cleanly")
+    log(f"[http] {cfg.name} behind the port's ServingServer: 2 "
+        f"/v1/completions (12 and 20 tokens) and 1 streamed "
+        f"/v1/chat/completions ({len(events) - 1} SSE events, 16 tokens) in "
+        f"{time.monotonic() - t0:.2f} s; /metrics counts {int(done)} "
+        f"completed requests; KV moved {backend.kv_bytes_moved} B; clean "
+        f"shutdown")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the launcher users start
+# ---------------------------------------------------------------------------
+def run_launch(device="cuda"):
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch import serve as launcher
+    argv = ["--smoke", "--open-loop", "--overlap"]
+    if device != "cuda":
+        argv += ["--device", device]
+    before = (pda.launches, cpa.launches)
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with redirect_stdout(buf):
+        rc = launcher.main(argv)
+    lines = buf.getvalue().splitlines()
+    head = dict(kv.split("=") for kv in lines[1].split()[:4])
+    if rc != 0 or head["completed"] != head["offered"]:
+        raise AssertionError(f"launcher: rc {rc}, {lines[1]}")
+    for line in lines:
+        log(f"[launch] {line}")
+    log(f"[launch] python -m repro_torch.launch.serve {' '.join(argv)}: "
+        f"{head['completed']}/{head['offered']} requests complete in "
+        f"{time.monotonic() - t0:.1f} s; kernel launches "
+        f"paged_decode_attention {pda.launches - before[0]}, "
+        f"chunked_prefill_attention {cpa.launches - before[1]}")
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where a step's device time goes
 # ---------------------------------------------------------------------------
 def _kernel_class(name: str) -> str:
@@ -767,15 +1155,57 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def _range_kernels(prof, name: str):
+    """The device kernels launched inside every ``record_function(name)``
+    range of a profile: each range's own kernels and those of the CPU ops
+    under it."""
+    import torch
+    out = []
+
+    def walk(ev):
+        out.extend(k for k in ev.kernels if k.name != name)
+        for child in ev.cpu_children:
+            walk(child)
+
+    for ev in prof.events():
+        if ev.name == name and \
+                ev.device_type == torch.autograd.DeviceType.CPU:
+            walk(ev)
+    return out
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Put every MoE layer of the port under a ``record_function("moe")``
+    range for the profiler (the port itself has no ranges)."""
+    import torch
+    from repro_torch.models import layers
+    fwd = layers.moe_fwd
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function("moe"):
+            return fwd(*args, **kwargs)
+
+    layers.moe_fwd = ranged
+    try:
+        yield
+    finally:
+        layers.moe_fwd = fwd
+
+
 def run_profile(seed: int, card: str, cfg=None, device="cuda",
                 n_slots: int = 8, ctx: int = 1024, chunk: int = 512,
                 steps: int = 4):
-    """One Qwen2.5-14B engine at the serve phase's sizes: ``steps``
-    prefill steps (a ``chunk``-token chunk on every slot at position
-    ``ctx``) and ``steps`` decode steps (every slot, contexts from
-    ``ctx + chunk``), each window under torch.profiler.  Prints wall time
-    per step, device time per kernel class, and the device's idle share
-    (wall time with no kernel running)."""
+    """One engine (Qwen2.5-14B unless ``cfg`` names another config) at the
+    serve phase's sizes: ``steps`` prefill steps (a ``chunk``-token chunk
+    on every slot at position ``ctx``) and ``steps`` decode steps (every
+    slot, contexts from ``ctx + chunk``), each window under
+    torch.profiler.  Prints wall time per step, device time per kernel
+    class, and the device's idle share (wall time with no kernel
+    running).  For an MoE model the kernels inside its MoE layers other
+    than matrix products (router softmax, sort, rank scan, dispatch,
+    combine) form the ``moe`` class, and the share of ``matmul`` that is
+    the expert products is printed beside it."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -806,8 +1236,8 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
                       ("decode", lambda i: decode(ctx + chunk + 1 + i))):
         sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
         sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with moe_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
                 fn(i)
@@ -815,17 +1245,38 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
             wall_us = (time.perf_counter() - t0) * 1e6
         dev = {}
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
+            # the "moe" ranges also show on the device timeline, as spans
+            # over their kernels: they are not kernels
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    ev.name != "moe":
                 cls = _kernel_class(ev.name)
                 dev[cls] = dev.get(cls, 0.0) + ev.time_range.elapsed_us()
         busy = sum(dev.values())
+        experts = ""
+        if cfg.moe_experts and device == "cuda":
+            inside = _range_kernels(prof, "moe")
+            mm = sum(k.duration for k in inside
+                     if _kernel_class(k.name) == "matmul")
+            moe = sum(k.duration for k in inside) - mm
+            if not inside:
+                raise RuntimeError("the profiler tied no kernel to the MoE "
+                                   "layers' ranges")
+            dev["other"] = dev.get("other", 0.0) - moe
+            dev["moe"] = moe
+            experts = (f"; of matmul, the expert products "
+                       f"{mm / steps / 1e3:.3f}")
         parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in
                           sorted(dev.items(), key=lambda kv: -kv[1]))
-        log(f"[profile] {label} step (B={n_slots}, "
+        log(f"[profile] {cfg.name} {label} step (B={n_slots}, "
             f"{'T=' + str(chunk) if label == 'prefill' else 'T=1'}, "
             f"context {ctx}): wall {wall_us / steps / 1e3:.3f} ms; device "
-            f"ms by kernel class: {parts or 'none recorded'}; idle share "
-            f"{1 - busy / wall_us:.3f}; card {card}")
+            f"ms by kernel class: {parts or 'none recorded'}{experts}; idle "
+            f"share {1 - busy / wall_us:.3f}; card {card}")
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        log(f"[profile] {cfg.name} {label} step, host ops by self CPU time "
+            f"a step: " + ", ".join(
+                f"{e.key} {e.self_cpu_time_total / steps / 1e3:.2f} ms "
+                f"({e.count // steps} calls)" for e in host[:8]))
     del eng, params
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -873,21 +1324,47 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     errs = {}
-    times = {}
+    times, moe_times = {}, {}
     if "kernels" in phases:
         errs = run_kernel_checks(args.seed)
-        times = time_kernels(args.seed)
+        times = time_kernels(args.seed, "qwen2.5-14b", 40, 8)
+        moe_times = time_kernels(args.seed, MOE_PATH, 32, 4)
         torch.cuda.empty_cache()
     if "model" in phases:
         run_model_check(args.seed)
-    launches = {}
+    launches = {}             # serving path -> kernel -> launches
     if "serve" in phases:
-        launches = run_serve(args.seed, card)
+        launches["qwen2.5-14b"] = run_serve(args.seed, card)
         gc.collect()     # the sessions' reference cycles hold the weights
         torch.cuda.empty_cache()
+    moe = None
+    if "moe" in phases:
+        run_moe_layer_check(args.seed)
+        run_moe_model_check(args.seed)
+        launches[MOE_PATH], *moe = run_moe_serve(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "http" in phases:
+        if moe is None:       # http alone: build the MoE weights for it
+            from repro_torch.configs import get_config
+            from repro_torch.models.model import init_params
+            cfg = get_config(MOE_PATH)
+            moe = [cfg, init_params(cfg, torch.Generator(device="cuda")
+                                    .manual_seed(args.seed), device="cuda"),
+                   4096]
+        run_http(args.seed, *moe)
+    moe = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "launch" in phases:
+        run_launch()
     if "profile" in phases:
         run_profile(args.seed, card)
+        from repro_torch.configs import get_config
+        run_profile(args.seed, card, cfg=get_config(MOE_PATH))
 
+    # times at the Qwen2.5-14B shapes (the first path; PERF.md's earlier
+    # rows), launches of every serving path run, max error over both
     replaces = {
         "paged_decode_attention":
             "src/repro/kernels/paged_decode_attention.py:79",
@@ -900,12 +1377,15 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": rep,
-            "launches": launches.get(name), "max_abs_err": errs.get(name),
+            "launches": {path: n[name] for path, n in launches.items()},
+            "max_abs_err": errs.get(name),
             "ms": t.get("ms"), "device_ms": t.get("device_ms"),
             "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
-            "library_device_ms": t.get("library_device_ms")})
+            "library_device_ms": t.get("library_device_ms"),
+            # the same times at the Qwen3-30B-A3B path's shapes
+            MOE_PATH: moe_times.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

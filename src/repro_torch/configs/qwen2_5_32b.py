@@ -1,0 +1,24 @@
+"""Qwen2.5-32B [hf:Qwen/Qwen2.5-32B-Instruct] — paper evaluation model."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    arch_type="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=27648,
+    vocab_size=152064,
+    mlp="swiglu",
+    norm="rmsnorm",
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen2.5-32B-Instruct (paper §6.1)",
+)
+
+
+def smoke_config() -> ModelConfig:
+    return CONFIG.with_(
+        n_layers=2, d_model=256, n_heads=8, n_kv_heads=2, d_ff=512,
+        vocab_size=512, dtype="float32")

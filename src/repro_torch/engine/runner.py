@@ -109,11 +109,11 @@ class InstanceEngine:
         if kv_mode == "dense" or window_override is not None:
             raise NotImplementedError(
                 "the dense slot cache (kv_mode='dense', window_override) "
-                "is not ported yet: ROADMAP.md queue A item 7")
+                "is not ported yet: ROADMAP.md queue A item 9")
         if not supports_paged_kv(cfg):
             raise NotImplementedError(
                 f"{cfg.name} needs the dense slot cache, which is not "
-                f"ported yet: ROADMAP.md queue A items 7 and 9")
+                f"ported yet: ROADMAP.md queue A item 9")
         if devices is not None and len(devices) > 1:
             raise NotImplementedError(
                 "sharded (multi-device) instances are not ported yet: "

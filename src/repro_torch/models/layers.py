@@ -1,9 +1,12 @@
-"""Layers of the dense paged-KV path: norms, RoPE, the SwiGLU MLP.
+"""Layers of the paged-KV decoders: norms, RoPE, the MLPs and MoE.
 
 Plain functions on tensors, mirroring ``repro.models.layers`` one for
-one.  MoE (``moe_fwd``) is not ported yet (ROADMAP.md queue A item 8).
+one.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,14 +74,114 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_fwd(p, x, cfg: ModelConfig):
-    """SwiGLU ``silu(x @ wg) * (x @ wi) @ wo``.  Returns (y, aux_loss);
-    aux_loss is the MoE load-balance term, 0 for a dense MLP."""
+    """Returns (y, aux_loss).  aux_loss is the MoE load-balance term (0
+    for dense MLPs)."""
     if cfg.moe_experts:
-        raise NotImplementedError("MoE is not ported yet "
-                                  "(ROADMAP.md queue A item 8)")
+        return moe_fwd(p, x, cfg)
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-        return h @ p["wo"], 0.0
-    raise NotImplementedError(f"mlp={cfg.mlp!r} is not ported yet; the "
-                              f"dense paged path serves SwiGLU models")
+    elif cfg.mlp == "geglu":
+        h = _gelu(x @ p["wg"]) * (x @ p["wi"])
+    elif cfg.mlp == "squared_relu":
+        h = torch.square(F.relu(x @ p["wi"]))
+    elif cfg.mlp == "gelu":
+        h = _gelu(x @ p["wi"])
+    else:
+        raise ValueError(cfg.mlp)
+    return h @ p["wo"], 0.0
+
+
+# --------------------------------------------------------------------------
+# MoE (GShard-style top-k dispatch with per-expert capacity buffers)
+# --------------------------------------------------------------------------
+def moe_route(p, xf, cfg: ModelConfig, capacity_factor: float):
+    """The routing decisions of ``repro.models.layers.moe_fwd`` for the
+    flat tokens ``xf`` (S, dm): router probabilities, the top-k experts
+    and weights of each token, each (token, k) slot's rank within its
+    expert, and whether that rank fits the capacity.
+
+    Ties in the top k go to the lower expert index, as ``jax.lax.top_k``
+    orders them (``torch.topk`` leaves tie order unspecified), and ranks
+    follow the stable sort of the flat expert ids, so every token of a
+    batch, pads and inactive slots included, competes for capacity in
+    the same order as in the reference.  Returns a dict with ``probs``
+    (S, E) f32, ``gate_w`` (S, K) f32 (0 where dropped), ``gate_idx``
+    and ``pos_in_e`` (S, K) int64, ``keep`` (S, K) bool and ``cap``."""
+    S = xf.shape[0]
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    logits = (xf @ p["router"]).float()                      # (S, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    gate_w, gate_idx = gate_w[:, :K], gate_idx[:, :K]        # (S, K)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    cap = max(int(math.ceil(S * K / E * capacity_factor)), 4)
+    # rank of each (token, k) slot within its expert: position in the
+    # stable sort by expert id, minus the start of the expert's segment
+    n = S * K
+    flat_e = gate_idx.reshape(n)
+    order = torch.argsort(flat_e, stable=True)
+    idx = torch.arange(n, device=xf.device)
+    sorted_e = flat_e[order]
+    first = torch.ones(n, dtype=torch.bool, device=xf.device)
+    first[1:] = sorted_e[1:] != sorted_e[:-1]
+    seg_start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    pos_flat = torch.empty_like(idx)
+    pos_flat[order] = idx - seg_start
+    pos_in_e = pos_flat.reshape(S, K)
+    keep = pos_in_e < cap
+    return {"probs": probs, "gate_w": gate_w * keep.to(gate_w.dtype),
+            "gate_idx": gate_idx, "pos_in_e": pos_in_e, "keep": keep,
+            "cap": cap}
+
+
+def moe_fwd(p, x, cfg: ModelConfig, capacity_factor: Optional[float] = None):
+    """x: (B, T, dm) -> (y, aux_loss), as ``repro.models.layers.moe_fwd``
+    computes it on one device: every expert runs its whole capacity
+    buffer (E, cap, dm), so a step reads every expert's weights."""
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    B, T, dm = x.shape
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    if p["wi"].shape[0] != E:
+        raise NotImplementedError(
+            "expert-parallel MoE (a slice of the experts on each device) "
+            "is not ported yet: ROADMAP.md queue A item 10")
+    S = B * T
+    xf = x.reshape(S, dm)
+    r = moe_route(p, xf, cfg, capacity_factor)
+    keep, cap = r["keep"], r["cap"]
+
+    # dispatch: kept slots land at (expert, rank); dropped slots add zero
+    # at (E - 1, clipped rank), as the reference's scatter-add does.  A
+    # kept slot has exactly one writer, so the accumulation order of the
+    # atomics cannot change a bit.
+    e_idx = torch.where(keep, r["gate_idx"], E - 1)
+    c_idx = r["pos_in_e"].clamp(0, cap - 1)
+    buf = torch.zeros((E, cap, dm), dtype=x.dtype, device=x.device)
+    buf.index_put_((e_idx, c_idx),
+                   xf[:, None, :] * keep[..., None].to(x.dtype),
+                   accumulate=True)
+
+    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+    out_e = torch.bmm(h, p["wo"])                            # (E, cap, dm)
+
+    # combine: each token's K expert outputs, weighted, summed over K
+    gathered = out_e[e_idx, c_idx]                           # (S, K, dm)
+    yf = (gathered * r["gate_w"][..., None].to(x.dtype)).sum(dim=1)
+    aux = moe_load_balance_loss(r["probs"], r["gate_idx"], E, K)
+    return yf.reshape(B, T, dm), aux
+
+
+def moe_load_balance_loss(probs, gate_idx, E, K):
+    """Switch-style load-balance aux loss."""
+    me = probs.mean(dim=0)                                   # (E,)
+    ce = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
+    return E * (me * ce).sum()

@@ -2,7 +2,7 @@
 
 Mirrors the paged branch of ``repro.models.mixers.attention_fwd`` and
 ``_paged_attention_fwd``.  The dense / ring-buffer caches and the
-full-sequence branch are a later slice (ROADMAP.md queue A item 7).
+full-sequence branch are a later slice (ROADMAP.md queue A item 9).
 
 Unlike the functional reference, the chunk's K/V is written into the page
 pool *in place* (``index_put_``): the pool tensors the caller passes are
@@ -150,11 +150,11 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
     """
     if kind != "attn":
         raise NotImplementedError(f"{kind!r} mixers are not ported yet "
-                                  f"(ROADMAP.md queue A items 7 and 9)")
+                                  f"(ROADMAP.md queue A item 9)")
     if cache is None or "k_pages" not in cache:
         raise NotImplementedError("only the paged KV path is ported; the "
                                   "dense cache and full-sequence branches "
-                                  "are ROADMAP.md queue A item 7")
+                                  "are ROADMAP.md queue A item 9")
     assert block_tables is not None and page_size > 0, \
         "paged cache needs block_tables + page_size"
     B, T, _ = x.shape

@@ -1,7 +1,7 @@
 """The decoder forward of the paged-KV serving path.
 
-Mirrors ``repro.models.model`` for dense full-attention decoders served
-from a page pool: ``supports_paged_kv``, ``init_paged_cache``,
+Mirrors ``repro.models.model`` for full-attention decoders (dense or
+MoE) served from a page pool: ``supports_paged_kv``, ``init_paged_cache``,
 ``forward(block_tables=...)`` and a torch-native ``init_params``.
 
 Parameters are a plain dict: ``embed`` (vocab, d_model), ``layers`` (a
@@ -35,13 +35,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights with the structure the reference's ``init_params``
     builds, at ``cfg.dtype``, generated directly on ``device`` (CUDA
     unless the caller asks for the CPU).  Scales follow the reference's
-    ``ParamFactory.dense``: ``1/sqrt(fan_in)``, and 0.02 for ``embed``
-    and ``lm_head``; biases start at 0 and norm scales at 1.  The numbers
-    differ from JAX's for the same seed (another generator); tests that
-    compare the two convert the JAX weights with ``convert``."""
-    if not supports_paged_kv(cfg) or cfg.moe_experts:
-        raise NotImplementedError(f"{cfg.name}: only dense full-attention "
-                                  f"decoders are ported (ROADMAP.md queue A)")
+    ``ParamFactory.dense``: ``1/sqrt(shape[0])`` (for an expert stack
+    (E, in, out) that is ``1/sqrt(E)``), and 0.02 for ``embed``,
+    ``lm_head`` and the MoE ``router``; biases start at 0 and norm scales
+    at 1.  The numbers differ from JAX's for the same seed (another
+    generator); tests that compare the two convert the JAX weights with
+    ``convert``."""
+    if not supports_paged_kv(cfg):
+        raise NotImplementedError(
+            f"{cfg.name} needs the dense slot cache or a recurrent, "
+            f"encoder or frontend block, which are not ported yet: "
+            f"ROADMAP.md queue A item 9")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -60,6 +64,24 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     def ones(n):
         return torch.ones(n, dtype=dt, device=dev)
 
+    def norm():
+        if cfg.norm == "layernorm":
+            return {"scale": ones(dm), "bias": zeros(dm)}
+        return {"scale": ones(dm)}
+
+    def mlp():
+        if cfg.moe_experts:
+            E, mff = cfg.moe_experts, cfg.moe_d_ff
+            return {"router": dense(dm, E, scale=0.02),
+                    "wi": dense(E, dm, mff), "wg": dense(E, dm, mff),
+                    "wo": dense(E, mff, dm)}
+        if cfg.mlp in ("swiglu", "geglu"):
+            return {"wi": dense(dm, ff), "wg": dense(dm, ff),
+                    "wo": dense(ff, dm)}
+        if cfg.mlp in ("squared_relu", "gelu"):
+            return {"wi": dense(dm, ff), "wo": dense(ff, dm)}
+        raise ValueError(cfg.mlp)
+
     dm, hd, H, KV, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, \
         cfg.d_ff
     params = {"embed": dense(cfg.vocab_size, dm, scale=0.02), "layers": []}
@@ -71,14 +93,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                          bv=zeros(KV * hd))
         if cfg.qk_norm:
             mixer.update(q_norm=ones(hd), k_norm=ones(hd))
-        params["layers"].append({
-            "norm1": {"scale": ones(dm)},
-            "mixer": mixer,
-            "norm2": {"scale": ones(dm)},
-            "mlp": {"wi": dense(dm, ff), "wg": dense(dm, ff),
-                    "wo": dense(ff, dm)},
-        })
-    params["final_norm"] = {"scale": ones(dm)}
+        layer = {"norm1": norm(), "mixer": mixer}
+        if cfg.mlp != "none" or cfg.moe_experts:
+            layer.update(norm2=norm(), mlp=mlp())
+        params["layers"].append(layer)
+    params["final_norm"] = norm()
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(dm, cfg.vocab_size, scale=0.02)
     return params
@@ -144,12 +163,13 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     n_valid: optional (B,) valid-token counts; pad tokens write no K/V.
     last_only: project only each row's last valid position to vocab.
     block_tables: (B, pages_per_slot) int physical-page table.
-    Returns (logits f32, cache, aux_loss).
+    Returns (logits f32, cache, aux_loss): the MoE load-balance terms
+    summed over layers, 0 for a dense model.
     """
     if cache is None or block_tables is None or page_size <= 0:
         raise NotImplementedError("only the paged-KV forward is ported; "
                                   "the dense and full-sequence forwards "
-                                  "are ROADMAP.md queue A item 7")
+                                  "are ROADMAP.md queue A item 9")
     if cfg.tail_kinds or cfg.cross_attention or cfg.pos_embedding != "rope":
         raise NotImplementedError(f"{cfg.name}: tail, cross-attention and "
                                   f"non-RoPE models are not ported yet")
@@ -165,6 +185,7 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     plan = paged_write_plan(batch_pos, block_tables, page_size, active,
                             token_mask)
 
+    aux_total = 0.0        # a dense MLP adds Python zeros: no launches
     pattern = cfg.layer_pattern
     for layer, bp in enumerate(params["layers"]):
         g, i = divmod(layer, len(pattern))
@@ -175,8 +196,11 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
             token_mask=token_mask, block_tables=block_tables,
             page_size=page_size, rope=rope, plan=plan)
         x = x + h
-        h, _ = mlp_fwd(bp["mlp"], norm_fwd(bp["norm2"], x, cfg.norm), cfg)
-        x = x + h
+        if "mlp" in bp:
+            h, aux = mlp_fwd(bp["mlp"], norm_fwd(bp["norm2"], x, cfg.norm),
+                             cfg)
+            x = x + h
+            aux_total = aux_total + aux
 
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     if last_only:
@@ -185,4 +209,5 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         x = x[torch.arange(B, device=dev), idx][:, None]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(x.dtype)).float()
-    return logits, cache, 0.0
+    return logits, cache, torch.as_tensor(aux_total, dtype=torch.float32,
+                                          device=dev)

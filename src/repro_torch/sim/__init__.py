@@ -1,5 +1,6 @@
-"""Scheduling policies.  The port has no simulator: the policies drive
-``ServeSession`` over the torch ``EngineBackend``."""
+from repro_torch.sim.simulator import (  # noqa: F401
+    ClusterSim, SessionStallError, SimBackend, SimConfig, SimMetrics,
+)
 from repro_torch.sim.policies import (  # noqa: F401
     ColocationPolicy, DisaggregationPolicy, DynaServePolicy,
     ElasticDynaServePolicy,

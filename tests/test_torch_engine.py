@@ -395,3 +395,38 @@ def test_unported_modes_raise_naming_the_roadmap(f32):
     eng = InstanceEngine(cfg, tp, n_slots=1, max_len=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.run_frontend(0)
+
+
+def test_elastic_policy_resizes_the_torch_pool_on_its_own(f32):
+    """``ElasticDynaServePolicy`` grows the torch backend's pool under a
+    burst (attach) and shrinks it again on a quiet tail (drain, retire),
+    with no caller attaching or draining anything; every token equals a
+    fixed colocated pool's."""
+    from repro_torch.core.elastic import ElasticConfig
+    from repro_torch.core.session import ServeSession, SessionConfig
+    from repro_torch.engine.backend import EngineBackend
+    from repro_torch.sim.policies import ElasticDynaServePolicy
+    _, _, cfg, tp = f32
+    rng = np.random.default_rng(11)
+    burst = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (40, 23, 31, 36, 27, 33)]
+    tail = burst[0][:12]
+    backend = EngineBackend(cfg, tp, n_slots=8, max_len=128, hw=A100)
+    # any backlog beyond one queued micro a member grows the pool; a
+    # predicted drain under 50 ms shrinks it (the smoke model's drains
+    # are milliseconds once the burst is served)
+    policy = ElasticDynaServePolicy(backend.cost, elastic=ElasticConfig(
+        min_instances=1, max_instances=2, check_interval=0.01,
+        scale_up_drain=0.0, scale_down_drain=0.05, scale_up_cooldown=0.0,
+        scale_down_cooldown=0.0, queue_low_watermark=1))
+    sess = ServeSession(backend, policy, SessionConfig(n_instances=1))
+    toks = [list(h) for h in [sess.generate(p, 6) for p in burst]]
+    grown = [e for _, e in sess.pool_events]
+    assert any(e.startswith("attach") for e in grown), grown
+    toks.append(list(sess.generate(tail, 30)))
+    events = [e for _, e in sess.pool_events]
+    assert any(e.startswith("retire") for e in events[len(grown):]), events
+    col = ServingCluster(cfg, tp, n_instances=1, split=False, max_len=128)
+    outs = [col.submit(p, 6) for p in burst] + [col.submit(tail, 30)]
+    col.run_until_done(outs)
+    assert toks == [list(h.generated) for h in outs]

@@ -159,16 +159,20 @@ def test_chunked_prefill_edges(cuda_device, prec, Tq, S, offs):
     assert torch.equal(dirty, got)
 
 
-def test_engine_on_card_matches_cpu(cuda_device):
-    """The Qwen2.5-14B smoke config (f32) greedy-decodes the same tokens
-    on the card, through both kernels, as on the CPU through their plain
-    versions, from the same weights."""
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "qwen3-moe-30b-a3b",
+                                  "grok-1-314b", "nemotron-4-340b",
+                                  "chatglm3-6b"])
+def test_engine_on_card_matches_cpu(cuda_device, arch):
+    """A smoke config (f32; dense, MoE, LayerNorm with squared ReLU, half
+    rotary) greedy-decodes the same tokens on the card, through both
+    kernels, as on the CPU through their plain versions, from the same
+    weights."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.engine import BatchItem, InstanceEngine
     from repro_torch.kernels import chunked_prefill_attention as cpa
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.models.model import init_params
-    cfg = get_smoke_config("qwen2.5-14b")
+    cfg = get_smoke_config(arch)
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
     def to(tree, dev):
@@ -197,3 +201,34 @@ def test_engine_on_card_matches_cpu(cuda_device):
     # one prefill step and seven decode steps, one launch per layer each
     assert (pda.launches - start[0], cpa.launches - start[1]) == \
         (7 * cfg.n_layers, cfg.n_layers)
+
+
+def test_moe_route_on_card_matches_cpu_with_ties(cuda_device):
+    """The MoE routing on the card (CUDA sort, argsort and cummax) makes
+    the CPU's decisions, with every token's top-k holding exact ties
+    (two pairs of experts share a router column) and slots dropping at a
+    small capacity factor."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import moe_fwd, moe_route
+    cfg = get_smoke_config("qwen3-moe-30b-a3b").with_(moe_experts=16,
+                                                      moe_top_k=4)
+    g = torch.Generator().manual_seed(0)
+    E, dm, ff = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    p = {"router": 0.3 * torch.randn(dm, E, generator=g),
+         "wi": torch.randn(E, dm, ff, generator=g) / dm ** 0.5,
+         "wg": torch.randn(E, dm, ff, generator=g) / dm ** 0.5,
+         "wo": torch.randn(E, ff, dm, generator=g) / ff ** 0.5}
+    p["router"][:, 3] = p["router"][:, 1]
+    p["router"][:, 9] = p["router"][:, 8]
+    x = torch.randn(4, 64, dm, generator=g)
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    xc = x.to(cuda_device)
+    for cf in (cfg.moe_capacity_factor, 0.5):
+        exp = moe_route(p, x.reshape(-1, dm), cfg, cf)
+        got = moe_route(pc, xc.reshape(-1, dm), cfg, cf)
+        for key in ("gate_idx", "pos_in_e", "keep"):
+            assert torch.equal(got[key].cpu(), exp[key]), (cf, key)
+        y, _ = moe_fwd(p, x, cfg, capacity_factor=cf)
+        yc, _ = moe_fwd(pc, xc, cfg, capacity_factor=cf)
+        torch.testing.assert_close(yc.cpu(), y, rtol=1e-4, atol=1e-4)
+    assert not exp["keep"].all()

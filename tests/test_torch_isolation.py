@@ -22,8 +22,23 @@ COPIES = [
     "core/global_scheduler.py", "core/elastic.py", "core/session.py",
     "core/__init__.py", "sim/policies.py", "engine/block_allocator.py",
     "engine/prefix_cache.py", "engine/sampling.py", "models/config.py",
-    "configs/qwen2_5_14b.py",
+    "configs/__init__.py", "configs/shapes.py", "configs/chatglm3_6b.py",
+    "configs/grok_1_314b.py", "configs/internvl2_76b.py",
+    "configs/mamba2_780m.py", "configs/nemotron_4_340b.py",
+    "configs/phi4_mini_3_8b.py", "configs/qwen1_5_32b.py",
+    "configs/qwen2_5_14b.py", "configs/qwen2_5_32b.py",
+    "configs/qwen2_5_72b.py", "configs/qwen3_moe_30b_a3b.py",
+    "configs/recurrentgemma_9b.py", "configs/whisper_large_v3.py",
+    "data/__init__.py", "data/workloads.py", "data/tokens.py",
+    "sim/__init__.py", "sim/simulator.py", "sim/replay.py",
+    "serving/__init__.py", "serving/metrics.py", "serving/tracing.py",
+    "serving/driver.py", "serving/flightrecorder.py",
+    "serving/attribution.py", "serving/loadgen.py", "launch/__init__.py",
 ]
+
+#: top-level definitions of ``serving/http.py`` the port changes: the
+#: engine-backend device field and the engine branch of ``make_session``
+HTTP_PORT_ONLY = {"ServerConfig", "make_session"}
 
 #: definitions copied from ``utils/sharding.py`` (the rest of that file
 #: builds jax.sharding specs and stays behind)
@@ -65,12 +80,28 @@ def test_copied_module_equals_reference(rel):
         f"again and rewrite only the import prefix")
 
 
-def _defs(path: Path):
+def _defs(path: Path, prefix: str = ""):
+    """Top-level functions and classes by name, with ``prefix.`` rewritten
+    to ``repro_torch.``."""
     src = path.read_text()
+    if prefix:
+        src = src.replace(prefix + ".", "repro_torch.")
     tree = ast.parse(src)
     return {node.name: ast.get_source_segment(src, node)
             for node in tree.body
-            if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                                 ast.AsyncFunctionDef))}
+
+
+def _top_level_statements(path: Path, prefix: str = ""):
+    """Every top-level statement but the module docstring, as source."""
+    src = path.read_text()
+    if prefix:
+        src = src.replace(prefix + ".", "repro_torch.")
+    tree = ast.parse(src)
+    body = tree.body[1:] if ast.get_docstring(tree) is not None \
+        else tree.body
+    return [ast.get_source_segment(src, node) for node in body]
 
 
 def test_copied_sharding_definitions_equal_reference():
@@ -79,3 +110,21 @@ def test_copied_sharding_definitions_equal_reference():
     assert set(port) == set(SHARDING_DEFS)
     for name in SHARDING_DEFS:
         assert port[name] == ref[name], name
+
+
+def test_http_differs_from_reference_only_in_server_config_and_make_session():
+    """The port's front door is the reference's except for the
+    engine-backend device field of ``ServerConfig`` and the engine branch
+    of ``make_session``; every other top-level statement is the same."""
+    ref_path, port_path = REF / "serving" / "http.py", \
+        PORT / "serving" / "http.py"
+    ref, port = _defs(ref_path, "repro"), _defs(port_path)
+    assert set(port) == set(ref)
+    assert [n for n in ref if port[n] != ref[n]] == sorted(HTTP_PORT_ONLY)
+    keep = [s for s in _top_level_statements(ref_path, "repro")
+            if not any(s.startswith(f"{kw} {name}") for name in HTTP_PORT_ONLY
+                       for kw in ("class", "def"))]
+    got = [s for s in _top_level_statements(port_path)
+           if not any(s.startswith(f"{kw} {name}") for name in HTTP_PORT_ONLY
+                      for kw in ("class", "def"))]
+    assert got == keep
