@@ -41,11 +41,24 @@ exits non-zero without the final result line:
              /v1/chat/completions, /metrics, clean shutdown.
 8. launch  — ``repro_torch.launch.serve.main(["--smoke", "--open-loop",
              "--overlap"])`` in-process: the smoke-config path users start.
+9. dense   — the dense slot cache, whose mixers are plain PyTorch ops (no
+             paged kernel may launch): RecurrentGemma-9B and Mamba2-780M,
+             full width and depth, serve the serve phase's 8 requests
+             through DynaServe and colocation, then hand a request off
+             past the window (state byte-equal after the import, both
+             engines decoding alike); Whisper-large-v3 (full) and
+             InternVL2-76B (full width, 8 of 80 layers) run their stub
+             frontends and decode, and a second Whisper frontend replaces
+             slot 0's cross K/V, as in the reference; each of the four at
+             full width and two layers (RecurrentGemma five) agrees with
+             the CPU in f32, and a chunk longer than the ring keeps the
+             CPU's last writer on the card.
 
 Optional, not in the default run: ``--phases profile`` profiles prefill
-and decode steps of one Qwen2.5-14B engine and one Qwen3-30B-A3B engine
-(device time by kernel class, MoE routing and dispatch apart, and the
-device's idle share).
+and decode steps of one engine each of Qwen2.5-14B, Qwen3-30B-A3B,
+RecurrentGemma-9B and Mamba2-780M (device time by kernel class, MoE
+routing and dispatch apart, the dense attention and the scans apart, and
+the device's idle share).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit and the one before that the
@@ -64,7 +77,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "model", "serve", "moe", "http", "launch")  # default
+PHASES = ("kernels", "model", "serve", "moe", "http", "launch",
+          "dense")                                 # default
 EXTRA_PHASES = ("profile",)                 # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
@@ -543,9 +557,12 @@ def time_kernels(seed: int, path: str, H: int, KV: int):
         library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
         **bound(n_bytes, 4 * visible * H * hd),
         shape=f"B={B} Tq={Tq} S={S} H={H} KV={KV} hd={hd} offsets={offs_l} bf16")
-    # quantized pools at the same shape (their codes convert to bf16 in
-    # the kernel, so the same operations bound holds)
+    # quantized pools at the same shape: their codes convert to bf16 in
+    # the kernel, so the same operations count, over 1-byte codes plus an
+    # f32 scale a key row
     del kd, vd
+    q_bound = bound(2 * B * Tq * H * hd * 2 + 2 * keys * (KV * hd + 4)
+                    + B * 4, 4 * visible * H * hd)
     quant = {}
     for prec in ("fp8", "int8"):
         kq, ksq = quantize_kv(k, prec)
@@ -566,8 +583,12 @@ def time_kernels(seed: int, path: str, H: int, KV: int):
             f"device time / SDPA device time "
             f"{r['device_ms'] / r['library_device_ms']:.3f}; at {r['shape']}")
     for prec, (tq, bodies) in quant.items():
-        log(f"[time] {path} chunked_prefill_attention, {prec} pool ({'/'.join(bodies)} "
-            f"body): {tq[0]:.4f} ms (events), device {tq[1]:.4f} ms, same shape")
+        log(f"[time] {path} chunked_prefill_attention, {prec} pool "
+            f"({'/'.join(bodies)} body): {tq[0]:.4f} ms (events), device "
+            f"{tq[1]:.4f} ms, same shape; bound {q_bound['bound_ms']:.4f} ms "
+            f"({q_bound['bound_by']}), {q_bound['bound_ms'] / tq[1]:.3f} of "
+            f"it on the device; no single PyTorch call attends over "
+            f"{prec} codes with per-token scales")
     res.pop("paged_decode_attention (short contexts)")
     return res
 
@@ -1142,6 +1163,447 @@ def run_launch(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the dense slot cache (recurrent, encoder-decoder and VLM models)
+# ---------------------------------------------------------------------------
+DENSE_PATHS = ("recurrentgemma-9b", "mamba2-780m")
+# handoff past the window: beta's state is alpha's byte for byte, so the
+# same bf16 decode steps give the same logits; 2e-2 (the kernels' bf16
+# tolerance) bounds what a reordered reduction could change
+HANDOFF_TOL = 2e-2
+# card against CPU in f32 with TF32 off: the products differ only in the
+# order of their f32 sums (d_model up to 8192 terms, relative errors near
+# 1e-6 a layer), so logits and states agree to 1e-4 of their own largest
+# magnitude; a wrong mask, ring slot or state update moves them by O(1)
+F32_RTOL = 1e-4
+# the cross K/V of slot 0 against the projections of a separate encoder
+# run on zero frames (bf16, another batch size): bf16 steps of the
+# largest values
+CROSS_TOL = 2e-2
+
+
+def paged_counts():
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels import paged_decode_attention as pda
+    return pda.launches + cpa.launches
+
+
+def dense_model(seed: int, name: str, device="cuda", **cut):
+    """The full-width model ``name`` (depth cut by ``cut``), random bf16
+    weights from ``seed`` generated on ``device``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config(name).with_(**cut)
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    weights = tensor_bytes(params)
+    n = sum(t.numel() for t in flat(params).values())
+    log(f"[dense] {cfg.name}{' (cut: ' + str(cut) + ')' if cut else ''}: "
+        f"{cfg.n_layers} layers {'/'.join(cfg.layer_pattern)}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{n / 1e9:.3f}B params, {weights / 1e9:.3f} GB, generated "
+        f"in {time.monotonic() - t0:.1f} s (ModelConfig.param_count "
+        f"{cfg.param_count() / 1e9:.3f}B)")
+    return cfg, params
+
+
+def run_dense_serve(seed: int, card: str, cfg, params, reqs=None,
+                    device="cuda"):
+    """The serve phases' 8 requests through DynaServe, then colocation, on
+    two dense-cache instances sharing the card and the weights; neither
+    paged kernel may launch."""
+    import numpy as np
+    import torch
+    reqs = reqs or make_requests(seed, cfg.vocab_size)
+    outs = {}
+    for policy in ("dynaserve", "colocation"):
+        before = paged_counts()
+        outs[policy], m, moved, wall = serve(cfg, params, reqs, policy)
+        n_paged = paged_counts() - before
+        ttft, tbt = np.asarray(m.ttfts) * 1e3, np.asarray(m.tbts) * 1e3
+        log(f"[dense] {cfg.name} {policy}: {m.completed}/{m.offered} "
+            f"requests, {m.tokens_total} tokens in {wall:.2f} s wall "
+            f"({m.tokens_total / wall:.2f} tok/s); TTFT mean "
+            f"{ttft.mean():.1f} p50 {np.median(ttft):.1f} max {ttft.max():.1f} "
+            f"ms; TBT mean {tbt.mean():.1f} p50 {np.median(tbt):.1f} p99 "
+            f"{np.percentile(tbt, 99):.1f} ms; state moved {moved} B; paged "
+            f"kernel launches {n_paged}; card {card}")
+        if m.completed != m.offered:
+            raise AssertionError(f"{cfg.name} {policy}: {m.completed} of "
+                                 f"{m.offered} requests")
+        if n_paged:
+            raise AssertionError(f"{cfg.name}: a paged kernel launched on "
+                                 f"the dense path")
+        if policy == "dynaserve" and moved <= 0:
+            raise AssertionError("no state handoff: DynaServe split no "
+                                 "request")
+        if device == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+    return outs
+
+
+def slot_state(eng, slot: int, upto: int):
+    """Every cache tensor of ``slot`` that a handoff of ``upto`` tokens
+    carries: spans of full-attention layers, whole rings, recurrent
+    state, tail and cross caches."""
+    out = {}
+    for i, c in enumerate(eng.cache["blocks"]):
+        for k, v in c.items():
+            ring = "k" in c and c["k"].shape[2] < upto
+            out[f"blocks[{i}].{k}"] = v[:, slot] if ring or "k" not in c \
+                else v[:, slot, :upto]
+    for j, tc in enumerate(eng.cache.get("tail", ())):
+        for k, v in tc.items():
+            out[f"tail[{j}].{k}"] = v[slot]
+    for k, v in eng.cache.get("cross", {}).items():
+        out[f"cross.{k}"] = v[:, slot]
+    return out
+
+
+def run_dense_handoff(seed: int, cfg, params, upto: int, chunk: int = 512,
+                      steps: int = 8, device="cuda"):
+    """Engine A prefills ``upto`` tokens in ``chunk``-token chunks and
+    exports its state (``chunk``-token pieces); engine B imports it.  B's
+    state must equal A's byte for byte; then both decode ``steps`` tokens
+    from the same tokens and their logits must agree."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import BatchItem, InstanceEngine
+    A, B = (InstanceEngine(cfg, params, n_slots=2, max_len=upto + 64,
+                           max_chunk=chunk) for _ in range(2))
+    prompt = np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab_size, upto).astype(np.int32)
+    sa, sb = A.alloc("r"), B.alloc("r")
+    for lo in range(0, upto, chunk):
+        A.run_batch([BatchItem(sa, prompt[lo:lo + chunk], lo)])
+    t0 = time.monotonic()
+    pieces = A.export_state(sa, upto=upto, chunk=chunk)
+    B.import_state(sb, pieces)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    moved = time.monotonic() - t0
+    sa_state, sb_state = slot_state(A, sa, upto), slot_state(B, sb, upto)
+    n_bytes = 0
+    for key, a in sa_state.items():
+        b = sb_state[key]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.contiguous().view(torch.uint8),
+                b.contiguous().view(torch.uint8)):
+            raise AssertionError(f"{cfg.name} handoff: {key} differs")
+        n_bytes += a.numel() * a.element_size()
+    rings = sum(p is not None for p in pieces[-1].get("rings", ()))
+    worst, tok = 0.0, int(prompt[-1])
+    for i in range(steps):
+        out_a = A.run_batch([BatchItem(sa, np.array([tok], np.int32),
+                                       upto + i, True)])[sa]
+        out_b = B.run_batch([BatchItem(sb, np.array([tok], np.int32),
+                                       upto + i, True)])[sb]
+        worst = max(worst, float(np.abs(out_a - out_b).max()))
+        tok = int(out_a.argmax())
+    log(f"[dense] {cfg.name} handoff at upto={upto} in {chunk}-token "
+        f"chunks: {len(pieces)} pieces (the last ships {rings} ring(s) "
+        f"whole), "
+        f"{n_bytes} B of slot state byte-equal after the import ("
+        f"state_bytes says {A.state_bytes(upto)} B), export+import "
+        f"{moved * 1e3:.1f} ms; {steps} decode steps from the same tokens: "
+        f"logits max abs err A vs B {worst:.3e} (tol {HANDOFF_TOL})")
+    if worst > HANDOFF_TOL:
+        raise AssertionError(f"{cfg.name} handoff logits differ by {worst}")
+
+
+def run_whisper_frontend(seed: int, card: str, steps: int = 16,
+                         device="cuda"):
+    """Whisper-large-v3 at full width: ``run_frontend`` on slot 0 of a
+    2-slot dense engine (1500 random frames x 0.02, 12 tokens), 16 decode
+    steps, then ``run_frontend`` on slot 1 with other frames.  The
+    reference's trait: slot 0's cross K/V then hold the projections of
+    the encoder run on zero frames."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import InstanceEngine
+    from repro_torch.models.mixers import _project_qkv
+    from repro_torch.models.model import _encoder_fwd
+    cfg, params = dense_model(seed, "whisper-large-v3", device=device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    frames = [0.02 * torch.randn(cfg.encoder_len, cfg.d_model, generator=g,
+                                 device=device) for _ in range(2)]
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 12).astype(np.int32)
+    eng = InstanceEngine(cfg, params, n_slots=2, max_len=64)
+    before = paged_counts()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.monotonic()
+    logits = eng.run_frontend(0, frames=frames[0], tokens=prompt)
+    t_front = time.monotonic() - t0
+    toks = decode_steps(eng, 0, logits, len(prompt), steps, cfg)
+    sync()
+    t_dec = time.monotonic() - t0 - t_front
+    xk0 = eng.cache["cross"]["xk"][:, 0].clone()
+    eng.run_frontend(1, frames=frames[1], tokens=prompt[:4])
+    with torch.no_grad():
+        # the encoder on the batch run_frontend built: zero frames in
+        # the inactive row 0, slot 1's frames in row 1
+        enc = _encoder_fwd(params, cfg, torch.stack(
+            [torch.zeros_like(frames[1]), frames[1]]))
+        worst, scale = 0.0, 0.0
+        for layer, lp in enumerate(params["layers"]):
+            _, xk, xv = _project_qkv(lp["cross"], cfg, enc[:, :1], enc)
+            for key, exp in (("xk", xk[0]), ("xv", xv[0])):
+                got = eng.cache["cross"][key][layer, 0]
+                worst = max(worst, float((got.float() - exp.float())
+                                         .abs().max()))
+                scale = max(scale, float(exp.float().abs().max()))
+    changed = not torch.equal(xk0, eng.cache["cross"]["xk"][:, 0])
+    log(f"[dense] {cfg.name} run_frontend: 1500 frames + 12 tokens on slot "
+        f"0 in {t_front * 1e3:.1f} ms, {steps} decode steps in "
+        f"{t_dec * 1e3:.1f} ms ({t_dec / steps * 1e3:.1f} ms a step), "
+        f"tokens {toks[:6]}...; after slot 1's frontend, slot 0's cross K/V "
+        f"{'were replaced' if changed else 'were NOT replaced'} by the "
+        f"zero-frame encoder's projections: max abs err {worst:.3e} "
+        f"(tol {CROSS_TOL} x max |value| {scale:.3f}); paged kernel "
+        f"launches {paged_counts() - before}; card {card}")
+    if not changed or worst > CROSS_TOL * max(1.0, scale):
+        raise AssertionError("whisper cross K/V trait not reproduced")
+    del eng, params
+
+
+def decode_steps(eng, slot, logits, pos, steps, cfg):
+    """Greedy decode ``steps`` tokens from ``logits``; checks each step's
+    logits are finite and the tokens in range."""
+    import numpy as np
+    from repro_torch.engine import BatchItem
+    toks = [int(np.asarray(logits).argmax())]
+    for i in range(steps):
+        out = eng.run_batch([BatchItem(slot, np.array([toks[-1]], np.int32),
+                                       pos + i, True)])[slot]
+        if out.shape != (cfg.vocab_size,) or not np.isfinite(out).all():
+            raise AssertionError(f"{cfg.name}: bad logits at step {i}")
+        toks.append(int(out.argmax()))
+    if not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"{cfg.name}: token out of range")
+    return toks
+
+
+def run_vlm_frontend(seed: int, card: str, n_layers: int = 8,
+                     steps: int = 16, device="cuda"):
+    """InternVL2-76B at full width, depth cut to ``n_layers`` of 80 (141
+    GB of bf16 weights do not fit one 80 GB card): ``run_frontend`` with
+    256 patch embeddings and 12 tokens, then 16 decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import InstanceEngine
+    cfg, params = dense_model(seed, "internvl2-76b", device=device,
+                              n_layers=n_layers)
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    ee = 0.02 * torch.randn(cfg.num_patches, cfg.d_model, generator=g,
+                            device=device)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 12).astype(np.int32)
+    eng = InstanceEngine(cfg, params, n_slots=2, max_len=512)
+    before = paged_counts()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.monotonic()
+    logits = eng.run_frontend(0, extra_embeds=ee, tokens=prompt)
+    sync()
+    t_front = time.monotonic() - t0
+    toks = decode_steps(eng, 0, logits, cfg.num_patches + len(prompt), steps,
+                        cfg)
+    sync()
+    t_dec = time.monotonic() - t0 - t_front
+    log(f"[dense] {cfg.name} run_frontend ({n_layers} of 80 layers, full "
+        f"width; cut because 141 GB of bf16 weights do not fit one 80 GB "
+        f"card): {cfg.num_patches} patches x {cfg.d_model} + 12 tokens in "
+        f"{t_front * 1e3:.1f} ms, {steps} decode steps in "
+        f"{t_dec * 1e3:.1f} ms, tokens {toks[:6]}...; paged kernel launches "
+        f"{paged_counts() - before}; card {card}")
+    del eng, params
+
+
+def run_dense_card_vs_cpu(seed: int, name: str, n_layers: int,
+                          T: int = 64, steps: int = 4, device="cuda", **cut):
+    """One full-width model cut to ``n_layers`` (f32, TF32 off) on the card
+    and on the CPU from the same weights and inputs: a prefill chunk on
+    two rows (one padded), then ``steps`` decode steps fed the same
+    tokens.  Logits and every cache tensor (recurrent state, rings and
+    their positions, tails, cross K/V) agree to F32_RTOL of their own
+    largest magnitude; positions exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import forward, init_cache
+    cfg, gpu = dense_model(seed, name, device=device, n_layers=n_layers,
+                           dtype="float32", **cut)
+    cpu = to_device(gpu, "cpu")
+    rng = np.random.default_rng(seed)
+    B = 2
+    toks = rng.integers(0, cfg.vocab_size, (B, T + steps))
+    n_valid = np.array([T, T - 7])
+    extra = {}
+    n_pre = 0
+    if cfg.arch_type == "vlm":
+        n_pre = 64
+        extra["extra_embeds"] = 0.02 * rng.standard_normal(
+            (B, n_pre, cfg.d_model))
+    if cfg.arch_type == "audio":
+        extra["frames"] = 0.02 * rng.standard_normal(
+            (B, cfg.encoder_len, cfg.d_model))
+
+    def run(params, dev):
+        t = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in extra.items()}
+        cache = init_cache(cfg, B, n_pre + T + steps + 8, device=dev)
+        nv = torch.tensor(n_valid + n_pre, device=dev)
+        out = []
+        with torch.no_grad():
+            lg, cache, _ = forward(
+                params, cfg, torch.tensor(toks[:, :T], device=dev),
+                cache=cache, pos_offset=torch.zeros(B, dtype=torch.long,
+                                                    device=dev),
+                n_valid=nv, last_only=True, **t)
+            out.append(lg)
+            for i in range(steps):
+                lg, cache, _ = forward(
+                    params, cfg, torch.tensor(toks[:, T + i:T + i + 1],
+                                              device=dev),
+                    cache=cache, pos_offset=nv + i, last_only=True)
+                out.append(lg)
+        return [o.cpu() for o in out], to_device(cache, "cpu")
+
+    t0 = time.monotonic()
+    got, got_cache = run(gpu, device)
+    exp, exp_cache = run(cpu, "cpu")
+    bad = []
+    worst = {}
+    exp_flat = flat(exp_cache)
+    for key, a, b in [("logits", torch.stack(got), torch.stack(exp))] + [
+            (k, v, exp_flat[k]) for k, v in flat(got_cache).items()]:
+        if not b.dtype.is_floating_point:
+            if not torch.equal(a, b):
+                bad.append(key)
+            continue
+        err = float((a - b).abs().max())
+        bound = F32_RTOL * float(b.abs().max())
+        worst[key] = (err, bound)
+        if err > bound:
+            bad.append(f"{key} {err:.3e} > {bound:.3e}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0] / max(kv[1][1],
+                                                              1e-30))[:3]
+    log(f"[dense] {cfg.name} card vs CPU, f32, {n_layers} layers full width, "
+        f"prefill T={T} on 2 rows (one padded to {T - 7}) + {steps} decode "
+        f"steps: logits max abs err {worst['logits'][0]:.3e} (bound "
+        f"{worst['logits'][1]:.3e} = {F32_RTOL} x max |logit|); worst "
+        f"state errors against their bounds: "
+        + ", ".join(f"{k} {e:.3e}/{b:.3e}" for k, (e, b) in top)
+        + f"; positions equal; {time.monotonic() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"{cfg.name} card vs CPU: {bad}")
+    del gpu, cpu
+
+
+def run_ring_past_window_check(seed: int, repeats: int = 10,
+                               device="cuda"):
+    """RecurrentGemma's smoke config (window 32) takes a 64-token chunk
+    (one row padded to 45): every ring slot has two writers, and the last
+    valid one must win on the card as on the CPU, on every repeat."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import forward, init_cache, init_params
+    cfg = get_smoke_config("recurrentgemma-9b")
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    gpu = to_device(cpu, device)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (4, 64)))
+    n_valid = torch.tensor([64, 45, 64, 33])
+
+    def run(params, dev):
+        cache = init_cache(cfg, 4, 96, device=dev)
+        with torch.no_grad():
+            forward(params, cfg, toks.to(dev), cache=cache,
+                    pos_offset=torch.zeros(4, dtype=torch.long, device=dev),
+                    n_valid=n_valid.to(dev), last_only=True)
+        return flat(to_device(cache, "cpu"))
+
+    exp = run(cpu, "cpu")
+    worst = 0.0
+    for _ in range(repeats):
+        got = run(gpu, device)
+        for key, a in got.items():
+            b = exp[key]
+            if not b.dtype.is_floating_point:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"ring past the window: {key} "
+                                         f"differs on the card")
+            else:
+                worst = max(worst, float((a - b).abs().max()))
+    if worst > F32_RTOL:
+        raise AssertionError(f"ring past the window: state err {worst}")
+    log(f"[dense] recurrentgemma-9b smoke ring (window {cfg.window}, one "
+        f"64-token chunk, rows of 64/45/64/33 valid tokens): {repeats} card "
+        f"runs keep the CPU's last writer in every slot (positions equal), "
+        f"state max abs err {worst:.3e} (tol {F32_RTOL})")
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def flat(tree, prefix=""):
+    """A cache as {path: tensor}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat(v, f"{prefix}.{k}" if not k.startswith("[")
+                        else prefix + k))
+    return out
+
+
+def run_dense(seed: int, card: str, device="cuda"):
+    """Phase 9.  RecurrentGemma-9B and Mamba2-780M serve at full width
+    and hand off past the window; Whisper-large-v3 and InternVL2-76B run
+    their stub frontends; the four models at full width and two layers
+    (RecurrentGemma five) agree with the CPU in f32."""
+    import torch
+    t0 = time.monotonic()
+    for name, upto in (("recurrentgemma-9b", 2560), ("mamba2-780m", 1536)):
+        cfg, params = dense_model(seed, name, device=device)
+        run_dense_serve(seed, card, cfg, params, device=device)
+        run_dense_handoff(seed, cfg, params, upto, device=device)
+        del params
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    run_whisper_frontend(seed, card, device=device)
+    run_vlm_frontend(seed, card, device=device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for name, n_layers, cut in (("recurrentgemma-9b", 5, {}),
+                                ("mamba2-780m", 2, {}),
+                                ("whisper-large-v3", 2,
+                                 {"encoder_layers": 2}),
+                                ("internvl2-76b", 2, {})):
+        run_dense_card_vs_cpu(seed, name, n_layers, device=device, **cut)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    run_ring_past_window_check(seed, device=device)
+    log(f"[dense] phase wall {time.monotonic() - t0:.1f} s; card {card}")
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where a step's device time goes
 # ---------------------------------------------------------------------------
 def _kernel_class(name: str) -> str:
@@ -1172,6 +1634,36 @@ def _range_kernels(prof, name: str):
                 ev.device_type == torch.autograd.DeviceType.CPU:
             walk(ev)
     return out
+
+
+#: plain ops of the dense path, by the profile class they form: the dense
+#: attention, and the SSD scan, the RG-LRU recurrence and the causal conv
+DENSE_RANGES = {"_flash_gqa": "attention", "_gqa_scores_to_out": "attention",
+                "ssd_scan": "scan", "_linear_scan": "scan",
+                "_causal_conv": "scan"}
+
+
+@contextlib.contextmanager
+def dense_ranges():
+    """Put each of the ``DENSE_RANGES`` functions of the port's mixers under
+    a ``record_function`` range named by its class, for the profiler."""
+    import torch
+    from repro_torch.models import mixers
+    saved = {name: getattr(mixers, name) for name in DENSE_RANGES}
+
+    def ranged(fn, cls):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(cls):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(mixers, name, ranged(fn, DENSE_RANGES[name]))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(mixers, name, fn)
 
 
 @contextlib.contextmanager
@@ -1205,7 +1697,11 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
     running).  For an MoE model the kernels inside its MoE layers other
     than matrix products (router softmax, sort, rank scan, dispatch,
     combine) form the ``moe`` class, and the share of ``matmul`` that is
-    the expert products is printed beside it."""
+    the expert products is printed beside it.  For a dense-cache model
+    every kernel of the plain dense attention forms the ``attention``
+    class and every kernel of the SSD scan, the RG-LRU recurrence and the
+    causal convolution the ``scan`` class (their products included; the
+    RG-LRU's one-token closed form stays in ``other``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1216,7 +1712,8 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
                          device=device)
     eng = InstanceEngine(cfg, params, n_slots=n_slots, page_size=8,
-                         n_pages=4096, max_chunk=chunk)
+                         n_pages=4096, max_chunk=chunk,
+                         max_len=ctx + 2 * chunk)
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (n_slots, ctx + chunk)).astype(np.int32)
     slots = [eng.alloc(f"r{i}") for i in range(n_slots)]
@@ -1236,8 +1733,9 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
                       ("decode", lambda i: decode(ctx + chunk + 1 + i))):
         sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
         sync()
-        with moe_ranges(), profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA]) as prof:
+        with moe_ranges(), dense_ranges(), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
                 fn(i)
@@ -1245,10 +1743,10 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
             wall_us = (time.perf_counter() - t0) * 1e6
         dev = {}
         for ev in prof.events():
-            # the "moe" ranges also show on the device timeline, as spans
-            # over their kernels: they are not kernels
+            # the ranges also show on the device timeline, as spans over
+            # their kernels: they are not kernels
             if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                    ev.name != "moe":
+                    ev.name not in ("moe", "attention", "scan"):
                 cls = _kernel_class(ev.name)
                 dev[cls] = dev.get(cls, 0.0) + ev.time_range.elapsed_us()
         busy = sum(dev.values())
@@ -1265,6 +1763,11 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
             dev["moe"] = moe
             experts = (f"; of matmul, the expert products "
                        f"{mm / steps / 1e3:.3f}")
+        if not eng.paged and device == "cuda":
+            for cls in ("attention", "scan"):
+                for k in _range_kernels(prof, cls):
+                    dev[_kernel_class(k.name)] -= k.duration
+                    dev[cls] = dev.get(cls, 0.0) + k.duration
         parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in
                           sorted(dev.items(), key=lambda kv: -kv[1]))
         log(f"[profile] {cfg.name} {label} step (B={n_slots}, "
@@ -1300,6 +1803,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is visible; this script runs "
               "only on a card", file=sys.stderr)
         return 2
+    t_start = time.monotonic()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -1358,10 +1862,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if "launch" in phases:
         run_launch()
+    if "dense" in phases:
+        run_dense(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "profile" in phases:
-        run_profile(args.seed, card)
         from repro_torch.configs import get_config
-        run_profile(args.seed, card, cfg=get_config(MOE_PATH))
+        for name in ("qwen2.5-14b", MOE_PATH) + DENSE_PATHS:
+            run_profile(args.seed, card, cfg=get_config(name))
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # times at the Qwen2.5-14B shapes (the first path; PERF.md's earlier
     # rows), launches of every serving path run, max error over both
@@ -1386,6 +1896,8 @@ def main(argv=None) -> int:
             "library_device_ms": t.get("library_device_ms"),
             # the same times at the Qwen3-30B-A3B path's shapes
             MOE_PATH: moe_times.get(name)})
+    log(f"[total] phases {','.join(phases)} passed in "
+        f"{time.monotonic() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

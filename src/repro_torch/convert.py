@@ -40,8 +40,10 @@ def to_torch(a, device=None) -> torch.Tensor:
 def params_from_jax(np_params, cfg: ModelConfig, device=None):
     """Map the JAX ``init_params`` pytree (leaves as numpy arrays) to the
     port's parameters.  Layer ``g * len(pattern) + i`` takes group ``g``
-    of ``np_params["blocks"][i]``; every weight keeps its (in, out)
-    orientation."""
+    of ``np_params["blocks"][i]``, and layer ``n_groups * len(pattern) +
+    j`` the tail block ``np_params["tail"][j]``; encoder layer ``l`` takes
+    entry ``l`` of every ``np_params["encoder"]`` stack.  Every weight
+    keeps its (in, out) orientation."""
     dev = resolve_device(device)
 
     def conv(tree, g=None):
@@ -51,11 +53,16 @@ def params_from_jax(np_params, cfg: ModelConfig, device=None):
 
     pattern = cfg.layer_pattern
     layers = []
-    for layer in range(cfg.n_layers):
+    for layer in range(cfg.n_groups * len(pattern)):
         g, i = divmod(layer, len(pattern))
         layers.append(conv(np_params["blocks"][i], g))
+    layers.extend(conv(tb) for tb in np_params.get("tail", ()))
     out = {"embed": conv(np_params["embed"]), "layers": layers,
            "final_norm": conv(np_params["final_norm"])}
-    if "lm_head" in np_params:
-        out["lm_head"] = conv(np_params["lm_head"])
+    for key in ("lm_head", "enc_norm", "pos_embed"):
+        if key in np_params:
+            out[key] = conv(np_params[key])
+    if "encoder" in np_params:
+        out["encoder"] = [conv(np_params["encoder"], l)
+                          for l in range(cfg.encoder_layers)]
     return out

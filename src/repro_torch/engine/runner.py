@@ -1,17 +1,17 @@
-"""Per-instance execution engine on torch, paged KV mode, one device.
+"""Per-instance execution engine on torch, one device.
 
 One ``InstanceEngine`` is the runtime of one *unified instance* in
-DynaServe terms: it owns a page-pooled KV cache and executes the batches
-the local scheduler composes.  A batch is a set of (slot, token span)
-items — prefill chunks of any length and decode steps (length 1) run
-together in ONE padded forward call, the paper's unified mixed batch.
+DynaServe terms: it owns a slot-pooled KV/state cache and executes the
+batches the local scheduler composes.  A batch is a set of (slot, token
+span) items — prefill chunks of any length and decode steps (length 1)
+run together in ONE padded forward call, the paper's unified mixed batch.
 
-This mirrors ``repro.engine.runner.InstanceEngine`` in paged mode.  The
-engine lives on the device of its parameters; its page pool is updated
-in place.  Exported handoff pieces keep the reference's dict shape, with
-their arrays left as tensors on the engine's device (the handoff between
-two instances on one card never leaves it).  The dense slot cache, the
-stub frontends and sharded instances are later slices of the port.
+This mirrors ``repro.engine.runner.InstanceEngine`` with its page pool
+and its dense slot cache.  The engine lives on the device of its
+parameters; its cache is updated in place.  Exported handoff pieces keep
+the reference's dict shape, with their arrays left as tensors on the
+engine's device (the handoff between two instances on one card never
+leaves it).  Sharded instances are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from repro_torch.kernels.ops import quantize_kv
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
-    forward, init_paged_cache, supports_paged_kv,
+    forward, init_cache, init_paged_cache, supports_paged_kv,
 )
 from repro_torch.utils.device import torch_dtype
 
@@ -88,12 +88,19 @@ def _cols(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 class InstanceEngine:
-    """One unified instance with a block-table page pool.
+    """One unified instance.
 
-    Attention runs through the paged-decode / chunked-prefill kernels:
-    the hand-written CUDA kernels on a card, their plain versions on the
-    CPU.  Requests grow by appending pages, so a sequence is bounded by
-    the *pool*, not a per-slot ``max_len``.
+    ``kv_mode`` selects the cache substrate:
+
+    * ``"paged"`` — block-table page pool (``init_paged_cache`` +
+      ``BlockAllocator``); attention runs through the paged-decode /
+      chunked-prefill kernels: the hand-written CUDA kernels on a card,
+      their plain versions on the CPU.  Requests grow by appending pages,
+      so a sequence is bounded by the *pool*, not a per-slot ``max_len``.
+    * ``"dense"`` — the (n_slots, max_len) slot cache (``init_cache``);
+      required for ring-buffer / recurrent / enc-dec / frontend
+      architectures, whose mixers are plain PyTorch ops.
+    * ``"auto"`` (default) — paged when the architecture supports it.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -106,14 +113,11 @@ class InstanceEngine:
                  devices: Optional[Sequence] = None):
         if kv_mode not in ("auto", "paged", "dense"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
-        if kv_mode == "dense" or window_override is not None:
-            raise NotImplementedError(
-                "the dense slot cache (kv_mode='dense', window_override) "
-                "is not ported yet: ROADMAP.md queue A item 9")
-        if not supports_paged_kv(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} needs the dense slot cache, which is not "
-                f"ported yet: ROADMAP.md queue A item 9")
+        if kv_mode == "paged" and not supports_paged_kv(cfg):
+            raise ValueError(f"{cfg.name} cannot run a paged KV cache")
+        if kv_mode == "paged" and window_override is not None:
+            raise ValueError("paged KV has no sliding-window support; "
+                             "window_override requires kv_mode='dense'")
         if devices is not None and len(devices) > 1:
             raise NotImplementedError(
                 "sharded (multi-device) instances are not ported yet: "
@@ -123,20 +127,39 @@ class InstanceEngine:
         self.device = params["embed"].device
         self.n_slots = n_slots
         self.max_len = max_len
+        self.window_override = window_override
         self.max_chunk = max_chunk
         self.buckets = bucket_ladder(max_chunk)
         self.kv_precision = get_precision(kv_precision)
         self.tp = 1
-        self.paged = True
-        self.page_size = page_size
-        self.n_pages = (n_pages if n_pages is not None
-                        else n_slots * pages_for(max_len, page_size))
-        self.cache = init_paged_cache(cfg, self.n_pages, page_size,
-                                      kv_precision=self.kv_precision,
-                                      device=self.device)
-        self.allocator = BlockAllocator(self.n_pages, page_size, n_slots,
-                                        precision=self.kv_precision)
-        self.page_buckets = bucket_ladder(self.n_pages)
+        self.paged = (kv_mode == "paged" or
+                      (kv_mode == "auto" and supports_paged_kv(cfg)
+                       and window_override is None))
+        if self.kv_precision.quantized and not self.paged:
+            raise ValueError("quantized KV formats live on the page pool; "
+                             f"kv_precision={self.kv_precision.name!r} "
+                             f"requires a paged KV mode")
+        if self.paged:
+            self.page_size = page_size
+            self.n_pages = (n_pages if n_pages is not None
+                            else n_slots * pages_for(max_len, page_size))
+            self.cache = init_paged_cache(cfg, self.n_pages, page_size,
+                                          kv_precision=self.kv_precision,
+                                          device=self.device)
+            self.allocator = BlockAllocator(self.n_pages, page_size,
+                                            n_slots,
+                                            precision=self.kv_precision)
+            self.page_buckets = bucket_ladder(self.n_pages)
+        else:
+            if prefix_cache:
+                raise ValueError("the shared-prefix cache lives on the "
+                                 "page pool; it requires a paged KV mode")
+            self.page_size = None
+            self.n_pages = None
+            self.allocator = None
+            self.cache = init_cache(cfg, n_slots, max_len,
+                                    window_override=window_override,
+                                    device=self.device)
         # shared-prefix KV cache: trie over the page pool + per-slot
         # claims; the allocator evicts through it under pressure
         self.prefix: Optional[PrefixCache] = None
@@ -158,34 +181,58 @@ class InstanceEngine:
                 f"no free KV slot for {req_id}: all {self.n_slots} in use")
         slot = self.free_slots.pop(0)
         self.slot_owner[slot] = req_id
+        if not self.paged:
+            self._clear_slot(slot)
         return slot
+
+    def _clear_slot(self, slot: int) -> None:
+        """Empty a dense slot for its new request: attention positions to
+        -1 (empty), K/V, recurrent state, conv tails and cross K/V to 0.
+        The reference leaves the previous request's state in a freed
+        slot, so a request that reuses it starts its recurrence from that
+        state and sees its ring entries (ROADMAP.md queue C); a page pool
+        needs nothing, since a new request gets fresh pages."""
+        for c in self.cache["blocks"]:
+            for k, v in c.items():
+                v[:, slot] = -1 if k == "pos" else 0
+        for tc in self.cache.get("tail", ()):
+            for k, v in tc.items():
+                v[slot] = -1 if k == "pos" else 0
+        for v in self.cache.get("cross", {}).values():
+            v[:, slot] = 0
 
     def free(self, slot: int) -> None:
         self.slot_owner.pop(slot, None)
-        self._drop_claim(slot)
-        self.allocator.free_slot(slot)
+        if self.allocator is not None:
+            self._drop_claim(slot)
+            self.allocator.free_slot(slot)
         self.free_slots.append(slot)
 
     def preempt(self, slot: int) -> None:
         """Release the slot's KV pages but keep the slot: the scheduler
         re-queues the request for recompute under memory pressure."""
-        self._drop_claim(slot)
-        self.allocator.trim(slot)
+        if self.allocator is not None:
+            self._drop_claim(slot)
+            self.allocator.trim(slot)
 
     @property
     def n_free(self) -> int:
         return len(self.free_slots)
 
     @property
-    def free_pages(self) -> int:
+    def free_pages(self) -> Optional[int]:
         """Free pages *including* what the prefix cache would give back
         under pressure (unpinned cached prefixes are evicted before any
-        request is preempted)."""
+        request is preempted); None for a dense cache."""
+        if self.allocator is None:
+            return None
         extra = self.prefix.evictable_pages if self.prefix else 0
         return self.allocator.free_pages + extra
 
     @property
     def mem_pressure(self) -> float:
+        if self.allocator is None:
+            return 0.0
         return 1.0 - self.free_pages / self.n_pages
 
     # ---------------- shared-prefix cache ----------------
@@ -241,8 +288,9 @@ class InstanceEngine:
     def check_invariants(self) -> None:
         """Refcount coherence (debug): allocator refs == table refs +
         prefix-cache refs for every page."""
-        refs = self.prefix.page_refcounts() if self.prefix else {}
-        self.allocator.check(cache_refs=refs)
+        if self.allocator is not None:
+            refs = self.prefix.page_refcounts() if self.prefix else {}
+            self.allocator.check(cache_refs=refs)
 
     # ---------------- execution ----------------
     def run_batch(self, items: Sequence[BatchItem]) -> Dict[int, np.ndarray]:
@@ -276,26 +324,29 @@ class InstanceEngine:
             pos_off[it.slot] = it.pos_offset
             n_valid[it.slot] = t
             active[it.slot] = True
-        # grow block tables to cover every item's span before the write;
-        # OutOfPages here means the scheduler overcommitted.  Growing may
-        # copy-on-write-fork shared prefix pages the write region touches
-        # — apply the KV copies first.
-        forks: List[Tuple[int, int]] = []
-        for it in items:
-            forks.extend(self.allocator.ensure(
-                it.slot, it.pos_offset + len(it.tokens)))
-        if forks:
-            self._apply_forks(forks)
-        n_pp = bucket_of(max(1, self.allocator.max_table_len),
-                         self.page_buckets)
-        tables = self._tensor(self.allocator.table_array(n_pp))
+        kw = {"window_override": self.window_override}
+        if self.paged:
+            # grow block tables to cover every item's span before the
+            # write; OutOfPages here means the scheduler overcommitted.
+            # Growing may copy-on-write-fork shared prefix pages the write
+            # region touches — apply the KV copies first.
+            forks: List[Tuple[int, int]] = []
+            for it in items:
+                forks.extend(self.allocator.ensure(
+                    it.slot, it.pos_offset + len(it.tokens)))
+            if forks:
+                self._apply_forks(forks)
+            n_pp = bucket_of(max(1, self.allocator.max_table_len),
+                             self.page_buckets)
+            kw = {"block_tables": self._tensor(
+                self.allocator.table_array(n_pp)),
+                "page_size": self.page_size}
         with torch.no_grad():
             logits, self.cache, _ = forward(
                 self.params, self.cfg, self._tensor(tokens),
                 cache=self.cache, pos_offset=self._tensor(pos_off),
                 active=self._tensor(active), n_valid=self._tensor(n_valid),
-                last_only=True, block_tables=tables,
-                page_size=self.page_size)
+                last_only=True, **kw)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -326,27 +377,119 @@ class InstanceEngine:
                 raw = as_indexable(t)
                 raw[:, new_ids] = raw[:, old_ids]
 
-    def run_frontend(self, slot: int, **_):
-        raise NotImplementedError(
-            "stub-frontend prefill (VLM/audio) is not ported yet: "
-            "ROADMAP.md queue A item 9")
+    def run_frontend(self, slot: int, *, extra_embeds=None, frames=None,
+                     tokens: Optional[np.ndarray] = None, pos_offset: int = 0):
+        """Stub-frontend prefill for VLM/audio requests: embeds the patch /
+        frame embeddings (plus any leading text tokens) into the cache for
+        one slot.  Runs as a dedicated call because embeddings enter below
+        the token embedding layer.  Embeddings and frames may be numpy
+        arrays or tensors.  Returns the slot's last-position logits.
+
+        As in the reference, ``frames`` re-encode every row (inactive rows
+        get zero frames) and the cross K/V of *every* slot is replaced;
+        ``active`` gates only the self-attention and recurrent writes."""
+        if self.paged:
+            raise ValueError("stub-frontend prefill requires a dense "
+                             "cache (paged engines serve text-only "
+                             "architectures)")
+        B = self.n_slots
+        dev = self.device
+        n_extra = (extra_embeds.shape[0] if extra_embeds is not None else 0)
+        tok = None
+        tvalid = 0
+        if tokens is not None and len(tokens):
+            tok = torch.zeros((B, len(tokens)), dtype=torch.long, device=dev)
+            tok[slot] = to_torch(np.asarray(tokens), dev).long()
+            tvalid = len(tokens)
+        kw = {}
+        if extra_embeds is not None:
+            ee = torch.zeros((B,) + tuple(extra_embeds.shape),
+                             dtype=torch.float32, device=dev)
+            ee[slot] = to_torch(extra_embeds, dev).float()
+            kw["extra_embeds"] = ee
+        if frames is not None:
+            fr = torch.zeros((B,) + tuple(frames.shape), dtype=torch.float32,
+                             device=dev)
+            fr[slot] = to_torch(frames, dev).float()
+            kw["frames"] = fr
+        active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        active[slot] = True
+        total = n_extra + tvalid
+        with torch.no_grad():
+            logits, self.cache, _ = forward(
+                self.params, self.cfg, tok, cache=self.cache,
+                pos_offset=torch.full((B,), pos_offset, dtype=torch.long,
+                                      device=dev),
+                active=active,
+                n_valid=torch.full((B,), total, dtype=torch.long, device=dev),
+                last_only=True, window_override=self.window_override, **kw)
+        self.iterations += 1
+        self.tokens_processed += total
+        return logits[slot, 0].cpu().numpy()
 
     # ---------------- micro-request state handoff ----------------
     def export_state(self, slot: int, upto: int, chunk: int = 0,
                      start: int = 0) -> List[dict]:
-        """Extract the KV needed to resume this request elsewhere: whole
-        pages covering positions [start, upto), grouped into pieces of
-        ``ceil(chunk / page_size)`` pages (chunk-based KV transfer,
-        §4.3).  A non-zero ``start`` (page-aligned) skips the leading
-        prefix the destination already holds."""
-        return list(self._export_paged_iter(slot, upto, chunk, start=start))
+        """Extract the KV/state needed to resume this request elsewhere.
+
+        Attention KV for positions [start, upto) is split into
+        ``chunk``-sized pieces (chunk-based KV transfer, §4.3); recurrent
+        state is O(1) and ships as a single piece.  Paged engines ship
+        whole pages, so the chunk boundaries of the transfer align with
+        page boundaries.  A non-zero ``start`` (page-aligned) skips the
+        leading prefix the destination already holds — the
+        prefix-cache-aware handoff ships only the pages the destination's
+        cache missed.  Dense pieces are copies (the cache is written in
+        place afterwards), with the reference's keys and ``None``
+        entries."""
+        if self.paged:
+            return list(self._export_paged_iter(slot, upto, chunk,
+                                                start=start))
+        if start:
+            raise ValueError("prefix-skipping export requires a paged "
+                             "cache")
+        pieces: List[dict] = []
+        spans = ([(0, upto)] if not chunk else
+                 [(s, min(s + chunk, upto)) for s in range(0, upto, chunk)])
+        for lo, hi in spans:
+            piece = {"span": (lo, hi), "blocks": []}
+            for c in self.cache["blocks"]:
+                if "k" in c and c["k"].shape[2] >= upto:
+                    piece["blocks"].append(
+                        {k: c[k][:, slot, lo:hi].clone()
+                         for k in ("k", "v", "pos")})
+                else:
+                    # ring buffer (sliding window): bounded — ship whole
+                    # buffer with the final piece instead of spans
+                    piece["blocks"].append(None)
+            pieces.append(piece)
+        final = pieces[-1]
+        final["rings"] = [
+            {k: v[:, slot].clone() for k, v in c.items()}
+            if "k" in c and c["k"].shape[2] < upto else None
+            for c in self.cache["blocks"]]
+        # recurrent / tail / cross state rides with the final piece
+        final["recurrent"] = [
+            {k: v[:, slot].clone() for k, v in c.items()}
+            if "k" not in c else None for c in self.cache["blocks"]]
+        if "tail" in self.cache:
+            final["tail"] = [{k: v[slot].clone() for k, v in tc.items()}
+                             for tc in self.cache["tail"]]
+        if "cross" in self.cache:
+            final["cross"] = {k: v[:, slot].clone()
+                              for k, v in self.cache["cross"].items()}
+        return pieces
 
     def export_state_iter(self, slot: int, upto: int, chunk: int = 0,
                           start: int = 0):
         """Lazy chunk-at-a-time export for background KV streams: each
         ``next()`` copies out exactly one piece, so the caller can
-        interleave decode batches between pieces."""
-        return self._export_paged_iter(slot, upto, chunk, start=start)
+        interleave decode batches between pieces.  Dense caches fall back
+        to the eager export (their final piece carries recurrent/ring
+        state that must be captured together)."""
+        if self.paged:
+            return self._export_paged_iter(slot, upto, chunk, start=start)
+        return iter(self.export_state(slot, upto, chunk, start=start))
 
     def _export_paged_iter(self, slot: int, upto: int, chunk: int = 0,
                            start: int = 0):
@@ -401,15 +544,46 @@ class InstanceEngine:
         return quantize_kv(x, dst.name)
 
     def import_state(self, slot: int, pieces: Sequence[dict]) -> None:
+        """Write exported pieces into ``slot``.  Piece arrays may be
+        tensors or numpy arrays (e.g. pieces the JAX engine exported)."""
+        if self.paged:
+            if any("blocks" in p for p in pieces):
+                raise ValueError("dense-cache pieces cannot be imported "
+                                 "into a paged engine")
+            self._import_paged(slot, pieces)
+            return
+        if any("pages" in p for p in pieces):
+            raise ValueError("paged pieces cannot be imported into a "
+                             "dense engine")
+        cache = self.cache
+
+        def put(dst, src):
+            dst.copy_(to_torch(src, self.device))
+
+        for piece in pieces:
+            lo, hi = piece["span"]
+            for c, bc in zip(cache["blocks"], piece["blocks"]):
+                if bc is not None:
+                    for k in ("k", "v", "pos"):
+                        put(c[k][:, slot, lo:hi], bc[k])
+            # ring buffers and recurrent state: whole slot, final piece
+            for part in ("rings", "recurrent"):
+                for c, rc in zip(cache["blocks"], piece.get(part) or ()):
+                    if rc is not None:
+                        for k, v in rc.items():
+                            put(c[k][:, slot], v)
+            for tc, new in zip(cache.get("tail", ()), piece.get("tail") or ()):
+                for k, v in new.items():
+                    put(tc[k][slot], v)
+            if piece.get("cross"):
+                for k, v in piece["cross"].items():
+                    put(cache["cross"][k][:, slot], v)
+
+    def _import_paged(self, slot: int, pieces: Sequence[dict]) -> None:
         """Allocate destination pages for every piece, then write each
         pool tensor in place with ONE indexed copy over the concatenated
         page ids.  Pieces exported from a pool of a different precision
-        are converted (dequantized / requantized) page-wise on import.
-        Piece arrays may be tensors or numpy arrays (e.g. pieces the JAX
-        engine exported)."""
-        if any("blocks" in p for p in pieces):
-            raise ValueError("dense-cache pieces cannot be imported "
-                             "into a paged engine")
+        are converted (dequantized / requantized) page-wise on import."""
         page = self.page_size
         quantized = self.kv_precision.quantized
         nl = len(self.cfg.layer_pattern)
@@ -449,18 +623,26 @@ class InstanceEngine:
                 as_indexable(blk[key])[:, ids] = src
 
     def _kv_itemsize(self) -> int:
-        """Itemsize of the dtype the page pool actually stores — NOT
-        ``cfg.dtype``: a quantized pool holds 1-byte codes."""
-        return self.cache["blocks"][0]["k_pages"].element_size()
+        """Itemsize of the dtype the KV cache actually stores — NOT
+        ``cfg.dtype``: a quantized page pool holds 1-byte codes."""
+        if self.paged:
+            return self.cache["blocks"][0]["k_pages"].element_size()
+        for c in self.cache["blocks"]:
+            if "k" in c:
+                return c["k"].element_size()
+        return torch_dtype(self.cfg.dtype).itemsize
 
     def state_bytes(self, upto: int, start: int = 0,
                     as_precision=None) -> int:
         """Bytes a handoff of tokens ``[start, upto)`` moves (for
         transfer modeling; ``start > 0`` is the prefix the destination's
-        cache already holds).  Whole pages ship, so the count is rounded
-        up to the page size.  ``as_precision`` prices the same span as if
-        the pool stored that format (for savings accounting)."""
+        cache already holds).  Paged engines ship whole pages, so the
+        attention term is rounded up to the page size; a local-attention
+        layer ships at most its window; recurrent layers ship their O(1)
+        f32 state.  ``as_precision`` prices the same span as if the pool
+        stored that format (for savings accounting)."""
         cfg = self.cfg
+        total = 0
         if as_precision is not None:
             prec = get_precision(as_precision)
             # unquantized formats store the compute dtype (f32 on the CPU
@@ -468,13 +650,25 @@ class InstanceEngine:
             item = prec.itemsize if prec.quantized \
                 else torch_dtype(cfg.dtype).itemsize
             per_tok = 2 * cfg.n_kv_heads * cfg.hd * item
-            quantized = prec.quantized
+            quantized = self.paged and prec.quantized
         else:
             per_tok = 2 * cfg.n_kv_heads * cfg.hd * self._kv_itemsize()
-            quantized = self.kv_precision.quantized
+            quantized = self.paged and self.kv_precision.quantized
         if quantized:
             # k + v per-token f32 dequant scales travel with the codes
             per_tok += 2 * 4
-        upto_attn = (pages_for(upto, self.page_size)
-                     - start // self.page_size) * self.page_size
-        return cfg.n_layers * upto_attn * per_tok
+        if self.paged:
+            upto_attn = (pages_for(upto, self.page_size)
+                         - start // self.page_size) * self.page_size
+        else:
+            upto_attn = upto - start
+        for kind in (list(cfg.layer_pattern) * cfg.n_groups)[: cfg.n_layers]:
+            if kind == "attn":
+                total += upto_attn * per_tok
+            elif kind == "local_attn":
+                total += min(upto, cfg.window or upto) * per_tok
+            elif kind == "ssd":
+                total += cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+            elif kind == "rglru":
+                total += cfg.lru_dim * 4
+        return total

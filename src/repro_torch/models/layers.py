@@ -1,4 +1,5 @@
-"""Layers of the paged-KV decoders: norms, RoPE, the MLPs and MoE.
+"""Layers of every decoder: norms, RoPE, the sinusoidal table, the MLPs
+and MoE.
 
 Plain functions on tensors, mirroring ``repro.models.layers`` one for
 one.
@@ -8,6 +9,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,6 +71,16 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
     o2 = x2 * c + x1 * s
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out, xp.to(out.dtype)], dim=-1).to(x.dtype)
+
+
+def sinusoidal_table(length: int, dim: int, device=None):
+    """(length, dim) f32 sin|cos table, computed in float64 numpy as the
+    reference does and only then rounded to f32."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    tab = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.tensor(tab.astype(np.float32), device=device)
 
 
 # --------------------------------------------------------------------------

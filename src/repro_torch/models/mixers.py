@@ -1,18 +1,35 @@
-"""Attention over the paged KV pool: the serving hot path of the port.
+"""Temporal-mixing blocks: (local/full) GQA attention, Mamba2 SSD, RG-LRU.
 
-Mirrors the paged branch of ``repro.models.mixers.attention_fwd`` and
-``_paged_attention_fwd``.  The dense / ring-buffer caches and the
-full-sequence branch are a later slice (ROADMAP.md queue A item 9).
+Mirrors ``repro.models.mixers`` function for function, with the same
+calling convention::
 
-Unlike the functional reference, the chunk's K/V is written into the page
-pool *in place* (``index_put_``): the pool tensors the caller passes are
-updated and returned.
+    y, new_cache = mixer_fwd(kind, params, x, cfg, cache=..., pos_offset=...)
+
+* ``cache=None``      -> full-sequence prefill (causal), no state kept.
+* ``cache={...}``     -> serving: write this chunk's state into the cache at
+                         ``pos_offset`` and attend over everything cached so
+                         far.  Decode is simply a chunk of length 1.
+
+Attention caches are either a page pool (``k_pages``, the paged serving
+path, through the hand-written kernels) or a dense slot cache that stores
+absolute token positions per slot (``pos``, -1 = empty), so full and
+sliding-window (ring-buffer) caches share one masking rule:
+``valid = 0 <= kpos <= qpos  and  qpos - kpos < window``.
+
+Unlike the functional reference, caches are written *in place*: the
+tensors of the dict the caller passes are updated and the dict returned.
+The dense attention, the SSD scan, the RG-LRU recurrence and the causal
+convolution are plain PyTorch ops, as they are plain ``jnp`` (no Pallas
+kernel) in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ops import (
     chunked_prefill_attention_op, gather_pages, gather_scales,
@@ -20,9 +37,24 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_head_norm, rope_tables
+from repro_torch.models.layers import (
+    _gelu, apply_rope, rms_head_norm, rope_tables,
+)
+
+NEG_INF = -1e30
+
+# Below this KV length the materialized (T, S) scores are used instead of
+# the block-streamed online softmax; ``FLASH_BLOCK`` keys a tile.  The
+# reference's values, as module attributes that tests may set (the
+# reference binds ``FLASH_BLOCK`` as ``_flash_gqa``'s default when the
+# module loads, and so does the port).
+FLASH_MIN_KV = 2048
+FLASH_BLOCK = 1024
 
 
+# ==========================================================================
+# Attention (full / local window, GQA, optional qkv bias / qk-norm / cross)
+# ==========================================================================
 def _project_qkv(p, cfg: ModelConfig, xq, xkv):
     B, Tq, _ = xq.shape
     Tk = xkv.shape[1]
@@ -46,9 +78,91 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv):
 
 
 def _attn_out(y, p, cfg: ModelConfig):
-    """Output projection (no tensor parallelism in this slice, so no
+    """Output projection (no tensor parallelism in the port yet, so no
     cross-shard sum)."""
     return y @ p["wo"]
+
+
+def _gqa_scores_to_out(cfg: ModelConfig, q, k, v, mask):
+    """q: (B,Tq,H,hd); k,v: (B,S,KV,hd); mask: (B,Tq,S) bool or None.
+
+    The scores are taken in the operands' dtype and then widened to f32,
+    and the softmax weights narrowed to v's dtype, as in the reference."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    qpk = H // KV
+    qg = q.reshape(B, Tq, KV, qpk, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", w, v)
+    return out.reshape(B, Tq, H * hd)
+
+
+def _flash_gqa(cfg: ModelConfig, q, k, v, qpos, kpos, window: int = 0,
+               block: int = FLASH_BLOCK, extra=None,
+               return_stats: bool = False):
+    """Block-streamed online-softmax attention: K/V are consumed in
+    ``block``-key tiles with running (m, l, acc) statistics, so the
+    (Tq, S) score matrix is never materialized.
+
+    q: (B,Tq,H,hd); k,v: (B,S,KV,hd); qpos: (B,Tq); kpos: (B,S) with -1
+    marking invalid slots.  Causal: attend iff 0 <= kpos <= qpos (and
+    within ``window`` if set).  ``extra`` = (k, v, pos) is an in-flight
+    tile taken after the cached ones (the decode token's own K/V, not yet
+    appended).  ``return_stats`` returns (m, l, acc) instead of the
+    output.
+
+    The products take the storage-dtype operands widened to f32 and keep
+    f32 results, which is what the reference's
+    ``preferred_element_type=f32`` computes.  The last tile is padded to
+    ``block`` with zero K/V at position -1, as in the reference: a row
+    with no visible key then averages V over the padded tile too."""
+    B, Tq, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qpk = H // KV
+    block = min(block, S)
+    nb = -(-S // block)
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=q.dtype, device=q.device)
+    qg = (q * scale).reshape(B, Tq, KV, qpk, hd).float()
+    f32, dev = torch.float32, q.device
+    m = torch.full((B, KV, qpk, Tq), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((B, KV, qpk, Tq), dtype=f32, device=dev)
+    acc = torch.zeros((B, KV, qpk, Tq, hd), dtype=f32, device=dev)
+
+    def tile(m, l, acc, kb, vb, kpb):
+        s = torch.einsum("btkgh,bskh->bkgts", qg, kb.float())  # (B,KV,g,Tq,bk)
+        ok = (kpb[:, None, :] >= 0) & (kpb[:, None, :] <= qpos[:, :, None])
+        if window:
+            ok &= (qpos[:, :, None] - kpb[:, None, :]) < window
+        s = torch.where(ok[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1)
+        acc_new = acc * alpha[..., None] + torch.einsum(
+            "bkgts,bskh->bkgth", p.to(v.dtype).float(), vb.float())
+        return m_new, l_new, acc_new
+
+    for i in range(nb):
+        kb = k[:, i * block:(i + 1) * block]
+        vb = v[:, i * block:(i + 1) * block]
+        kpb = kpos[:, i * block:(i + 1) * block]
+        pad = block - kb.shape[1]
+        if pad:
+            kb = F.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = F.pad(vb, (0, 0, 0, 0, 0, pad))
+            kpb = F.pad(kpb, (0, pad), value=-1)
+        m, l, acc = tile(m, l, acc, kb, vb, kpb)
+    if extra is not None:
+        m, l, acc = tile(m, l, acc, *extra)
+    if return_stats:
+        return m, l, acc
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.movedim(3, 1).reshape(B, Tq, H * hd)       # (B,Tq,KV,g,hd)
+    return out.to(q.dtype)
 
 
 def paged_write_plan(batch_pos, block_tables, page_size: int,
@@ -70,13 +184,46 @@ def paged_write_plan(batch_pos, block_tables, page_size: int,
     within = batch_pos - logical * page_size
     phys = torch.gather(block_tables.long(), 1,
                         logical.clamp(0, n_pp - 1))
-    wmask = torch.ones((B, T), dtype=torch.bool, device=batch_pos.device)
+    wmask = _write_mask(B, T, batch_pos.device, active, token_mask)
+    rows = torch.nonzero(wmask.reshape(-1)).squeeze(1)
+    return rows, phys.reshape(-1)[rows], within.reshape(-1)[rows]
+
+
+def dense_write_plan(batch_pos, S_buf: int, ring: int = 0, active=None,
+                     token_mask=None) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where the chunk's K/V rows go in a dense slot cache of ``S_buf``
+    slots: ``(b, t, slot)`` of the tokens that are written, with
+    ``slot = pos % ring`` for a ring buffer (``ring`` = its window) and
+    ``pos`` otherwise.
+
+    The reference scatters with ``mode="drop"``: masked tokens (pads,
+    inactive slots) and positions past ``S_buf`` write nothing, and they
+    are left out here.  A chunk longer than the ring maps positions ``p``
+    and ``p + ring`` to one slot; XLA applies such duplicate updates in
+    order, so the last one wins, while ``index_put_`` leaves the winner
+    open.  So only the last valid writer of each (row, slot) is kept,
+    found by a max-reduction, which no write order can change."""
+    B, T = batch_pos.shape
+    dev = batch_pos.device
+    slots = batch_pos % ring if ring else batch_pos
+    wmask = _write_mask(B, T, dev, active, token_mask) & (slots < S_buf)
+    t = torch.arange(T, device=dev).expand(B, T)
+    target = torch.where(wmask, slots, S_buf)
+    last = torch.full((B, S_buf + 1), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(1, target, torch.where(wmask, t, -1), "amax")
+    keep = wmask & (last.gather(1, target) == t)
+    b, tt = torch.nonzero(keep, as_tuple=True)
+    return b, tt, slots[b, tt]
+
+
+def _write_mask(B: int, T: int, device, active, token_mask):
+    wmask = torch.ones((B, T), dtype=torch.bool, device=device)
     if active is not None:
         wmask &= active.to(torch.bool)[:, None]
     if token_mask is not None:
         wmask &= token_mask
-    rows = torch.nonzero(wmask.reshape(-1)).squeeze(1)
-    return rows, phys.reshape(-1)[rows], within.reshape(-1)[rows]
+    return wmask
 
 
 def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
@@ -136,29 +283,51 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
 
 def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
                   cache: Optional[dict] = None, pos_offset=0,
+                  window_override: Optional[int] = None,
                   active: Optional[torch.Tensor] = None,
                   token_mask: Optional[torch.Tensor] = None,
+                  valid_len: Optional[torch.Tensor] = None,
+                  append_external: bool = False,
                   block_tables=None, page_size: int = 0,
-                  rope=None, plan=None):
-    """Self-attention over a paged cache.  Returns (y, cache).
+                  rope=None, plans: Optional[dict] = None):
+    """Self-attention. Returns (y, new_cache).
 
     ``pos_offset`` may be an int or a per-request (B,) tensor (unified
     batches where each request sits at a different length).
     ``active``: optional (B,) bool — inactive slots write nothing.
-    ``rope`` / ``plan``: the (sin, cos) tables and the page-write plan,
-    which ``forward`` computes once for all layers; built here if absent.
+    ``block_tables`` (with a paged cache holding ``k_pages``/``v_pages``)
+    selects the paged-attention path.  ``append_external`` leaves a dense
+    cache untouched and returns the chunk's K/V and positions as deltas.
+    ``rope``: the (sin, cos) tables of the cached path's positions, and
+    ``plans``: a dict in which the cache-write plans are kept; ``forward``
+    shares both across layers, and they are built here if absent.
     """
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} mixers are not ported yet "
-                                  f"(ROADMAP.md queue A item 9)")
-    if cache is None or "k_pages" not in cache:
-        raise NotImplementedError("only the paged KV path is ported; the "
-                                  "dense cache and full-sequence branches "
-                                  "are ROADMAP.md queue A item 9")
-    assert block_tables is not None and page_size > 0, \
-        "paged cache needs block_tables + page_size"
     B, T, _ = x.shape
+    window = window_override if window_override is not None else (
+        cfg.window if kind == "local_attn" else 0)
     q, k, v = _project_qkv(p, cfg, x, x)
+    plans = {} if plans is None else plans
+
+    if cache is None:
+        positions = torch.arange(T, device=x.device)
+        if cfg.pos_embedding == "rope":
+            sin, cos = rope_tables(positions, cfg.hd, cfg.rope_theta,
+                                   cfg.rope_fraction)
+            q = apply_rope(q, sin, cos)
+            k = apply_rope(k, sin, cos)
+        if T >= FLASH_MIN_KV:
+            pos_b = positions[None].expand(B, T)
+            y = _flash_gqa(cfg, q, k, v, pos_b, pos_b, window=window)
+            return _attn_out(y, p, cfg), None
+        qpos = positions[:, None]
+        kpos = positions[None, :]
+        m = kpos <= qpos
+        if window:
+            m &= (qpos - kpos) < window
+        y = _gqa_scores_to_out(cfg, q, k, v, m[None].expand(B, T, T))
+        return _attn_out(y, p, cfg), None
+
+    # ---- cached path (prefill chunk / decode) -----------------------------
     batch_pos = _batch_positions(pos_offset, B, T, x.device)
     if cfg.pos_embedding == "rope":
         if rope is None:
@@ -166,13 +335,321 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
                                cfg.rope_fraction)
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
-    elif cfg.pos_embedding != "none":
-        raise NotImplementedError(f"pos_embedding={cfg.pos_embedding!r} "
-                                  f"is not ported yet")
-    y, cache = _paged_attention_fwd(
-        p, q, k, v, cfg, cache, batch_pos, block_tables, page_size,
-        active, token_mask, plan=plan)
+
+    if "k_pages" in cache:
+        assert block_tables is not None and page_size > 0, \
+            "paged cache needs block_tables + page_size"
+        if "paged" not in plans:
+            plans["paged"] = paged_write_plan(batch_pos, block_tables,
+                                              page_size, active, token_mask)
+        y, cache = _paged_attention_fwd(
+            p, q, k, v, cfg, cache, batch_pos, block_tables, page_size,
+            active, token_mask, plan=plans["paged"])
+        return _attn_out(y, p, cfg), cache
+
+    if append_external:
+        # the cache is read-only here; the chunk's K/V rides as an
+        # in-flight flash tile and comes back as a delta to append
+        y = _flash_gqa(cfg, q, cache["k"], cache["v"], batch_pos,
+                       cache["pos"], window=window, extra=(k, v, batch_pos))
+        return _attn_out(y, p, cfg), {"k_delta": k, "v_delta": v,
+                                      "pos_delta": batch_pos}
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    S_buf = ck.shape[1]
+    # Full-prompt prefill (pos_offset statically 0, chunk covers the whole
+    # buffer): the chunk IS the cache
+    if (T == S_buf and isinstance(pos_offset, int) and pos_offset == 0
+            and active is None and token_mask is None):
+        ck.copy_(k)
+        cv.copy_(v)
+        cpos.copy_(batch_pos)
+        if S_buf >= FLASH_MIN_KV:
+            y = _flash_gqa(cfg, q, ck, cv, batch_pos, cpos, window=window)
+        else:
+            qp = batch_pos[:, :, None]
+            kp = cpos[:, None, :]
+            mask = kp <= qp
+            if window:
+                mask &= (qp - kp) < window
+            y = _gqa_scores_to_out(cfg, q, ck, cv, mask)
+        return _attn_out(y, p, cfg), cache
+    ring = window if (window and S_buf == window) else 0
+    key = ("dense", S_buf, ring)
+    if key not in plans:
+        plans[key] = dense_write_plan(batch_pos, S_buf, ring, active,
+                                      token_mask)
+    b, t, slot = plans[key]
+    ck[b, slot] = k[b, t].to(ck.dtype)
+    cv[b, slot] = v[b, t].to(cv.dtype)
+    cpos[b, slot] = batch_pos[b, t].to(cpos.dtype)
+
+    if S_buf >= FLASH_MIN_KV:
+        y = _flash_gqa(cfg, q, ck, cv, batch_pos, cpos, window=window)
+        return _attn_out(y, p, cfg), cache
+    qpos = batch_pos[:, :, None]                        # (B, T, 1)
+    kpos = cpos[:, None, :]                             # (B, 1, S_buf)
+    mask = (kpos >= 0) & (kpos <= qpos)
+    if window:
+        mask &= (qpos - kpos) < window
+    y = _gqa_scores_to_out(cfg, q, ck, cv, mask)
     return _attn_out(y, p, cfg), cache
+
+
+def cross_attention_fwd(p, x, cfg: ModelConfig, *, enc_out=None, cache=None):
+    """Cross-attention for enc-dec decoders.  KV comes from the encoder
+    output: projected when ``enc_out`` is given (for every row of the
+    batch), else read from ``cache``.  Returns (y, {"xk", "xv"} or None);
+    the caller stores the new cross K/V."""
+    if cache is not None and enc_out is None:
+        xk, xv = cache["xk"], cache["xv"]
+        q, _, _ = _project_qkv(p, cfg, x, x[:, :1])   # kv unused
+    else:
+        q, xk, xv = _project_qkv(p, cfg, x, enc_out)
+    y = _gqa_scores_to_out(cfg, q, xk, xv, None)
+    new_cache = {"xk": xk, "xv": xv} if cache is not None else None
+    return _attn_out(y, p, cfg), new_cache
+
+
+# ==========================================================================
+# Mamba2 SSD (state-space duality, chunked)
+# ==========================================================================
+def _segsum(x):
+    """x: (..., T) -> (..., T, T) lower-tri cumulative segment sums."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return torch.where(mask, d, -math.inf)
+
+
+def ssd_scan(Xd, dtA, Bm, Cm, chunk: int, init_state):
+    """Chunked SSD.
+
+    Xd:  (b, l, h, p)  dt-discretized inputs (x * dt)
+    dtA: (b, l, h)     dt * A (negative)
+    Bm/Cm: (b, l, h, n) per-head (groups already broadcast)
+    init_state: (b, h, p, n) float32
+    Returns y (b, l, h, p), final_state.
+
+    ``torch.einsum`` contracts more than two operands from left to right
+    (no ``opt_einsum`` on the card's machine), so each of the reference's
+    three- and four-operand contractions is written as pairwise steps in
+    an order whose largest intermediate is (nc, b, h, cs, cs) or
+    (nc, b, h, p, n): C·B over n first, then the decay mask, then X.
+    """
+    b, l, h, pdim = Xd.shape
+    cs = min(chunk, l)
+    assert l % cs == 0, (l, cs)
+    nc = l // cs
+
+    def r(t):  # (b, l, ...) -> (nc, b, cs, ...)
+        return t.reshape(b, nc, cs, *t.shape[2:]).movedim(1, 0)
+
+    Xc, Ac, Bc, Cc = r(Xd), r(dtA), r(Bm), r(Cm)
+    Acum = torch.cumsum(Ac, dim=2)                         # (nc,b,cs,h)
+    # intra-chunk (quadratic within chunk)
+    L = torch.exp(_segsum(Ac.movedim(-1, -2)))             # (nc,b,h,cs,cs)
+    CB = torch.einsum("cbzhn,cbshn->cbhzs", Cc, Bc)        # (nc,b,h,cs,cs)
+    Ydiag = torch.einsum("cbhzs,cbshp->cbzhp", CB * L.to(Cc.dtype), Xc)
+    # states emitted by each chunk
+    decay_to_end = torch.exp(Acum[:, :, -1:, :] - Acum)    # (nc,b,cs,h)
+    states = torch.einsum("cbshn,cbshp->cbhpn", Bc,
+                          Xc * decay_to_end.to(Bc.dtype)[..., None])
+    chunk_decay = torch.exp(Acum[:, :, -1, :])             # (nc,b,h)
+    # inter-chunk recurrence, one chunk at a time; each chunk sees the
+    # state *before* it
+    carry = init_state.float()
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[c][..., None, None].to(carry.dtype) \
+            + states[c].to(carry.dtype)
+    prev_states = torch.stack(prev)                        # (nc,b,h,p,n)
+    # inter-chunk contribution
+    decay_from_start = torch.exp(Acum)                     # (nc,b,cs,h)
+    Yoff = torch.einsum("cbzhn,cbhpn->cbzhp", Cc, prev_states.to(Cc.dtype)) \
+        * decay_from_start.to(Cc.dtype)[..., None]
+    Y = Ydiag + Yoff
+    Y = Y.movedim(0, 1).reshape(b, l, h, pdim)
+    return Y, carry
+
+
+def _causal_conv(x, w, b, tail=None, valid_len=None):
+    """Depthwise causal conv.  x: (B, T, C), w: (K, C), tail: (B, K-1, C).
+
+    ``valid_len``: per-row count of real (non-pad) tokens; the new tail is
+    gathered from the last K-1 *valid* inputs so right-padding a chunk
+    cannot pollute the next chunk's conv state."""
+    K = w.shape[0]
+    T = x.shape[1]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([tail, x], dim=1)
+    out = sum(xp[:, i:i + T] * w[i] for i in range(K))
+    if K > 1:
+        if valid_len is None:
+            new_tail = xp[:, -(K - 1):]
+        else:
+            idx = valid_len.long()[:, None] + torch.arange(K - 1,
+                                                           device=x.device)
+            new_tail = torch.gather(
+                xp, 1, idx[..., None].expand(-1, -1, xp.shape[2]))
+    else:
+        new_tail = tail
+    return out + b, new_tail
+
+
+def ssd_fwd(p, x, cfg: ModelConfig, *, cache: Optional[dict] = None,
+            pos_offset=0, active: Optional[torch.Tensor] = None,
+            token_mask: Optional[torch.Tensor] = None,
+            valid_len: Optional[torch.Tensor] = None):
+    """Mamba2 block. x: (B, T, dm). Returns (y, new_cache).
+
+    ``token_mask`` (B, T): right-pad tokens get dt=0 — an exact identity
+    recurrence step — so padded mixed batches leave the SSD state correct.
+    Inactive rows (``active`` False) keep their state and conv tail.
+    """
+    B, T, dm = x.shape
+    di, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
+    conv_tail = cache["conv"] if cache is not None else None
+    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_tail,
+                                 valid_len=valid_len)
+    xbc = F.silu(xbc)
+    xs, Bm, Cm = torch.split(xbc, [di, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, T, H, P)
+    Bm = Bm.reshape(B, T, G, N)
+    Cm = Cm.reshape(B, T, G, N)
+    rep = H // G
+    Bm = Bm.repeat_interleave(rep, dim=2)
+    Cm = Cm.repeat_interleave(rep, dim=2)
+    # softplus on f32, dt_bias included
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    if token_mask is not None:
+        dt = dt * token_mask[..., None].to(dt.dtype)
+    A = -torch.exp(p["A_log"].float())                     # (H,)
+    dtA = dt * A                                           # (B,T,H)
+    Xd = xs * dt[..., None].to(xs.dtype)
+
+    state0 = (cache["state"] if cache is not None
+              else torch.zeros((B, H, P, N), dtype=torch.float32,
+                               device=x.device))
+    chunk = 1 if T == 1 else cfg.ssm_chunk
+    if T % chunk != 0:
+        chunk = 1 if T < cfg.ssm_chunk else T // (T // cfg.ssm_chunk)
+        while T % chunk:
+            chunk -= 1
+    y, state = ssd_scan(Xd, dtA.float(), Bm, Cm, chunk, state0)
+    if cache is not None and active is not None:
+        state = torch.where(active[:, None, None, None], state,
+                            cache["state"])
+        new_tail = torch.where(active[:, None, None], new_tail,
+                               cache["conv"])
+    y = y + xs * p["D"].to(xs.dtype)[None, None, :, None]
+    y = y.reshape(B, T, di)
+    # gated rmsnorm (rsqrt on f32, then cast) and out proj, mamba2 order
+    y = y * F.silu(z)
+    yf = y.float()
+    y = (yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + 1e-6)
+         ).to(x.dtype) * p["norm"]
+    out = y @ p["out_proj"]
+    if cache is None:
+        return out, None
+    cache["state"].copy_(state)
+    cache["conv"].copy_(new_tail)
+    return out, cache
+
+
+# ==========================================================================
+# RG-LRU (RecurrentGemma / Griffin recurrent block)
+# ==========================================================================
+def _linear_scan(a, v):
+    """h_t = a_t h_{t-1} + v_t along dim 1, from h_{-1} = 0: the
+    reference's ``associative_scan`` of ``(a1 a2, a2 v1 + v2)``, taken as
+    a Hillis–Steele scan in ceil(log2 T) doubling steps (another tree
+    order than XLA's, so sums differ by rounding)."""
+    T = a.shape[1]
+    d = 1
+    while d < T:
+        v = torch.cat([v[:, :d], a[:, d:] * v[:, :-d] + v[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return v
+
+
+def rglru_fwd(p, x, cfg: ModelConfig, *, cache: Optional[dict] = None,
+              pos_offset=0, active: Optional[torch.Tensor] = None,
+              token_mask: Optional[torch.Tensor] = None,
+              valid_len: Optional[torch.Tensor] = None, c: float = 8.0):
+    """Griffin recurrent block: a gelu gate branch and a conv + RG-LRU
+    branch.  Pad tokens are identity steps (a = 1, v = 0); inactive rows
+    keep their state and conv tail."""
+    B, T, dm = x.shape
+    gate = _gelu(x @ p["w_gate"])
+    u = x @ p["w_in"]
+    tail = cache["conv"] if cache is not None else None
+    u, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"], tail,
+                               valid_len=valid_len)
+    r = torch.sigmoid(u @ p["w_a"] + p["b_a"]).float()
+    i = torch.sigmoid(u @ p["w_x"] + p["b_x"])
+    log_a = -c * F.softplus(p["lam"].float()) * r          # (B,T,W)
+    if token_mask is not None:
+        log_a = log_a * token_mask[..., None].to(log_a.dtype)
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    v = beta * (i * u).float()                             # (B,T,W)
+    if token_mask is not None:
+        v = v * token_mask[..., None].to(v.dtype)
+
+    h0 = (cache["h"] if cache is not None
+          else torch.zeros((B, cfg.lru_dim), dtype=torch.float32,
+                           device=x.device))
+    if T == 1:
+        h = a[:, 0] * h0 + v[:, 0]
+        hs = h[:, None]
+    else:
+        # seeded with h0 folded into v_1
+        v = torch.cat([(v[:, 0] + a[:, 0] * h0)[:, None], v[:, 1:]], dim=1)
+        hs = _linear_scan(a, v)
+        h = hs[:, -1]
+    y = (hs.to(x.dtype) * gate) @ p["w_out"]
+    if cache is None:
+        return y, None
+    if active is not None:
+        h = torch.where(active[:, None], h, cache["h"])
+        new_tail = torch.where(active[:, None, None], new_tail, cache["conv"])
+    cache["h"].copy_(h)
+    cache["conv"].copy_(new_tail)
+    return y, cache
+
+
+# ==========================================================================
+# dispatch
+# ==========================================================================
+def mixer_fwd(kind: str, p, x, cfg: ModelConfig, *, cache=None, pos_offset=0,
+              window_override=None, active=None, token_mask=None,
+              valid_len=None, append_external=False, block_tables=None,
+              page_size=0, rope=None, plans=None):
+    if kind in ("attn", "local_attn"):
+        return attention_fwd(p, x, cfg, kind=kind, cache=cache,
+                             pos_offset=pos_offset,
+                             window_override=window_override, active=active,
+                             token_mask=token_mask, valid_len=valid_len,
+                             append_external=append_external,
+                             block_tables=block_tables, page_size=page_size,
+                             rope=rope, plans=plans)
+    if kind == "ssd":
+        return ssd_fwd(p, x, cfg, cache=cache, pos_offset=pos_offset,
+                       active=active, token_mask=token_mask,
+                       valid_len=valid_len)
+    if kind == "rglru":
+        return rglru_fwd(p, x, cfg, cache=cache, pos_offset=pos_offset,
+                         active=active, token_mask=token_mask,
+                         valid_len=valid_len)
+    raise ValueError(kind)
 
 
 def _batch_positions(pos_offset, B: int, T: int, device) -> torch.Tensor:

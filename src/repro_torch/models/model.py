@@ -1,16 +1,24 @@
-"""The decoder forward of the paged-KV serving path.
+"""Unified model: one forward for every architecture family.
 
-Mirrors ``repro.models.model`` for full-attention decoders (dense or
-MoE) served from a page pool: ``supports_paged_kv``, ``init_paged_cache``,
-``forward(block_tables=...)`` and a torch-native ``init_params``.
+Mirrors ``repro.models.model``: ``init_params``, ``init_cache`` (the
+dense slot cache), ``supports_paged_kv``, ``init_paged_cache`` and
+``forward`` over a paged pool, a dense cache or no cache at all.
 
 Parameters are a plain dict: ``embed`` (vocab, d_model), ``layers`` (a
-list with one dict per layer, the reference's per-group stacks unrolled:
-layer ``g * len(pattern) + i`` is ``params["blocks"][i][g]`` there),
-``final_norm`` and ``lm_head`` (d_model, vocab).  Weights keep the
-reference's ``x @ W`` (in, out) orientation.  The page pools keep the
-reference's ``(G, n_pages, page, KV, hd)`` layout per pattern position,
-so exported pieces compare byte for byte, and are updated in place.
+list with one dict per layer, ``n_layers`` long: the reference's
+per-group stacks unrolled, so layer ``g * len(pattern) + i`` is
+``params["blocks"][i][g]`` there, followed by the tail blocks, so layer
+``n_groups * len(pattern) + j`` is ``params["tail"][j]``),
+``final_norm``, ``lm_head`` (d_model, vocab) unless tied, and where the
+config has them ``encoder`` (a list of ``encoder_layers`` layer dicts),
+``enc_norm`` and ``pos_embed``.  Weights keep the reference's ``x @ W``
+(in, out) orientation.
+
+Caches keep the reference's layout, so exported pieces compare byte for
+byte: one dict per pattern position with leaves stacked over the G
+groups (``blocks``), one per tail block without that axis (``tail``),
+and the cross-attention K/V of every decoder layer (``cross``).  They
+are updated in place.
 """
 from __future__ import annotations
 
@@ -20,11 +28,34 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import mlp_fwd, norm_fwd, rope_tables
+from repro_torch.models.layers import (
+    mlp_fwd, norm_fwd, rope_tables, sinusoidal_table,
+)
 from repro_torch.models.mixers import (
-    _batch_positions, attention_fwd, paged_write_plan,
+    _batch_positions, cross_attention_fwd, mixer_fwd,
 )
 from repro_torch.utils.device import resolve_device, torch_dtype
+
+
+def _sinusoidal_of(pos, dim: int):
+    """Sinusoidal embedding of integer positions (any device)."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[:, None] / torch.pow(
+        torch.tensor(10000.0, device=pos.device), 2 * i / dim)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's block config (MHA, gelu MLP, no cross)."""
+    return cfg.with_(n_kv_heads=cfg.n_heads, moe_experts=0, mlp="gelu",
+                     layer_pattern=("attn",), cross_attention=False)
+
+
+def _layer_kinds(cfg: ModelConfig):
+    """The mixer kind of every layer: the pattern repeated, then the
+    tail blocks (the pattern's first ``n_layers % len(pattern)``)."""
+    return [cfg.layer_pattern[i % cfg.pattern_len]
+            for i in range(cfg.n_layers)]
 
 
 # ==========================================================================
@@ -35,17 +66,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights with the structure the reference's ``init_params``
     builds, at ``cfg.dtype``, generated directly on ``device`` (CUDA
     unless the caller asks for the CPU).  Scales follow the reference's
-    ``ParamFactory.dense``: ``1/sqrt(shape[0])`` (for an expert stack
-    (E, in, out) that is ``1/sqrt(E)``), and 0.02 for ``embed``,
-    ``lm_head`` and the MoE ``router``; biases start at 0 and norm scales
-    at 1.  The numbers differ from JAX's for the same seed (another
-    generator); tests that compare the two convert the JAX weights with
+    ``ParamFactory``: ``dense`` draws N(0, 1) times ``1/sqrt(shape[0])``
+    (for an expert stack (E, in, out) that is ``1/sqrt(E)``) or the
+    stated scale (0.02 for ``embed``, ``lm_head``, ``pos_embed`` and the
+    MoE ``router``, 0.5 for conv kernels, 0.02 for the RG-LRU gates);
+    ``uniform`` draws ``A_log``, ``dt_bias`` and ``lam`` from their
+    ranges; biases start at 0 and norm scales and ``D`` at 1.  The
+    numbers differ from JAX's for the same seed (another generator);
+    tests that compare the two convert the JAX weights with
     ``convert``."""
-    if not supports_paged_kv(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} needs the dense slot cache or a recurrent, "
-            f"encoder or frontend block, which are not ported yet: "
-            f"ROADMAP.md queue A item 9")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -58,49 +87,156 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                         dtype=torch.float32)
         return (w.mul_(scale)).to(dt)
 
+    def uniform(n, lo, hi):
+        w = torch.rand(n, generator=generator, device=dev,
+                       dtype=torch.float32)
+        return (w.mul_(hi - lo).add_(lo)).to(dt)
+
     def zeros(n):
         return torch.zeros(n, dtype=dt, device=dev)
 
     def ones(n):
         return torch.ones(n, dtype=dt, device=dev)
 
-    def norm():
-        if cfg.norm == "layernorm":
-            return {"scale": ones(dm), "bias": zeros(dm)}
-        return {"scale": ones(dm)}
+    def norm(c):
+        if c.norm == "layernorm":
+            return {"scale": ones(c.d_model), "bias": zeros(c.d_model)}
+        return {"scale": ones(c.d_model)}
 
-    def mlp():
-        if cfg.moe_experts:
-            E, mff = cfg.moe_experts, cfg.moe_d_ff
+    def attention(c, cross=False):
+        dm, hd, H, KV = c.d_model, c.hd, c.n_heads, c.n_kv_heads
+        p = {"wq": dense(dm, H * hd), "wk": dense(dm, KV * hd),
+             "wv": dense(dm, KV * hd), "wo": dense(H * hd, dm)}
+        if c.qkv_bias:
+            p.update(bq=zeros(H * hd), bk=zeros(KV * hd), bv=zeros(KV * hd))
+        if c.qk_norm and not cross:
+            p.update(q_norm=ones(hd), k_norm=ones(hd))
+        return p
+
+    def ssd(c):
+        dm, di = c.d_model, c.d_inner
+        G, N, H = c.ssm_groups, c.ssm_state, c.ssm_heads
+        conv_dim = di + 2 * G * N
+        return {"in_proj": dense(dm, 2 * di + 2 * G * N + H),
+                "conv_w": dense(c.ssm_conv, conv_dim, scale=0.5),
+                "conv_b": zeros(conv_dim),
+                "A_log": uniform(H, 0.0, 1.3),     # A = -exp(A_log)
+                "D": ones(H),
+                "dt_bias": uniform(H, -4.0, -1.0),
+                "norm": ones(di),
+                "out_proj": dense(di, dm)}
+
+    def rglru(c):
+        dm, W = c.d_model, c.lru_dim
+        return {"w_gate": dense(dm, W), "w_in": dense(dm, W),
+                "conv_w": dense(c.lru_conv, W, scale=0.5),
+                "conv_b": zeros(W),
+                "w_a": dense(W, W, scale=0.02), "b_a": zeros(W),
+                "w_x": dense(W, W, scale=0.02), "b_x": zeros(W),
+                "lam": uniform(W, 2.0, 6.0),
+                "w_out": dense(W, dm)}
+
+    def mlp(c):
+        dm, ff = c.d_model, c.d_ff
+        if c.moe_experts:
+            E, mff = c.moe_experts, c.moe_d_ff
             return {"router": dense(dm, E, scale=0.02),
                     "wi": dense(E, dm, mff), "wg": dense(E, dm, mff),
                     "wo": dense(E, mff, dm)}
-        if cfg.mlp in ("swiglu", "geglu"):
+        if c.mlp in ("swiglu", "geglu"):
             return {"wi": dense(dm, ff), "wg": dense(dm, ff),
                     "wo": dense(ff, dm)}
-        if cfg.mlp in ("squared_relu", "gelu"):
+        if c.mlp in ("squared_relu", "gelu"):
             return {"wi": dense(dm, ff), "wo": dense(ff, dm)}
-        raise ValueError(cfg.mlp)
+        raise ValueError(c.mlp)
 
-    dm, hd, H, KV, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.d_ff
-    params = {"embed": dense(cfg.vocab_size, dm, scale=0.02), "layers": []}
-    for _ in range(cfg.n_layers):
-        mixer = {"wq": dense(dm, H * hd), "wk": dense(dm, KV * hd),
-                 "wv": dense(dm, KV * hd), "wo": dense(H * hd, dm)}
-        if cfg.qkv_bias:
-            mixer.update(bq=zeros(H * hd), bk=zeros(KV * hd),
-                         bv=zeros(KV * hd))
-        if cfg.qk_norm:
-            mixer.update(q_norm=ones(hd), k_norm=ones(hd))
-        layer = {"norm1": norm(), "mixer": mixer}
-        if cfg.mlp != "none" or cfg.moe_experts:
-            layer.update(norm2=norm(), mlp=mlp())
-        params["layers"].append(layer)
-    params["final_norm"] = norm()
+    def block(c, kind):
+        """pre-norm + mixer + (cross-attn) + pre-norm + mlp"""
+        mixer = {"attn": attention, "local_attn": attention, "ssd": ssd,
+                 "rglru": rglru}[kind](c)
+        p = {"norm1": norm(c), "mixer": mixer}
+        if c.cross_attention:
+            p.update(norm_x=norm(c), cross=attention(c, cross=True))
+        if c.mlp != "none" or c.moe_experts:
+            p.update(norm2=norm(c), mlp=mlp(c))
+        return p
+
+    params = {"embed": dense(cfg.vocab_size, cfg.d_model, scale=0.02),
+              "layers": [block(cfg, kind) for kind in _layer_kinds(cfg)]}
+    params["final_norm"] = norm(cfg)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(dm, cfg.vocab_size, scale=0.02)
+        params["lm_head"] = dense(cfg.d_model, cfg.vocab_size, scale=0.02)
+    if cfg.encoder_layers:
+        enc_cfg = _encoder_cfg(cfg)
+        params["encoder"] = [block(enc_cfg, "attn")
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = norm(cfg)
+    if cfg.pos_embedding == "learned":
+        params["pos_embed"] = dense(
+            32_768 if cfg.arch_type != "audio" else 65_536, cfg.d_model,
+            scale=0.02)
     return params
+
+
+# ==========================================================================
+# dense cache construction
+# ==========================================================================
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               window_override: Optional[int] = None, device=None):
+    """Per-pattern-position caches stacked over the G groups, as the
+    reference builds them: attention slots (G, batch, S_buf, KV, hd) with
+    ``pos`` -1 (empty), where a local-attention layer (or every layer,
+    under ``window_override``) keeps a ring of ``min(max_len, window)``
+    slots; SSD state (f32) and conv tail; RG-LRU state (f32) and conv
+    tail; tail-block caches without the group axis; cross K/V for every
+    decoder layer."""
+    dev = resolve_device(device)
+    G = cfg.n_groups
+    dt = torch_dtype(cfg.dtype)
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    caches = []
+    for kind in cfg.layer_pattern:
+        eff_window = window_override if window_override is not None \
+            else cfg.window
+        kind_eff = "local_attn" if (kind == "attn" and window_override) \
+            else kind
+        if kind_eff in ("attn", "local_attn"):
+            S_buf = min(max_len, eff_window) \
+                if (kind_eff == "local_attn" and eff_window) else max_len
+            c = {"k": zeros((G, batch, S_buf, cfg.n_kv_heads, cfg.hd)),
+                 "v": zeros((G, batch, S_buf, cfg.n_kv_heads, cfg.hd)),
+                 "pos": torch.full((G, batch, S_buf), -1, dtype=torch.int32,
+                                   device=dev)}
+        elif kind == "ssd":
+            c = {"state": zeros((G, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                 cfg.ssm_state), torch.float32),
+                 "conv": zeros((G, batch, cfg.ssm_conv - 1,
+                                cfg.d_inner + 2 * cfg.ssm_groups
+                                * cfg.ssm_state))}
+        elif kind == "rglru":
+            c = {"h": zeros((G, batch, cfg.lru_dim), torch.float32),
+                 "conv": zeros((G, batch, cfg.lru_conv - 1, cfg.lru_dim))}
+        else:
+            raise ValueError(kind)
+        caches.append(c)
+    cache = {"blocks": tuple(caches)}
+    if cfg.tail_kinds:
+        tail = init_cache(cfg.with_(n_layers=len(cfg.tail_kinds),
+                                    layer_pattern=cfg.tail_kinds,
+                                    cross_attention=False),
+                          batch, max_len, window_override=window_override,
+                          device=dev)
+        # strip the G=1 leading dim for tail caches
+        cache["tail"] = tuple({k: v[0] for k, v in c.items()}
+                              for c in tail["blocks"])
+    if cfg.cross_attention:
+        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads,
+                 cfg.hd)
+        cache["cross"] = {"xk": zeros(shape), "xv": zeros(shape)}
+    return cache
 
 
 # ==========================================================================
@@ -108,7 +244,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ==========================================================================
 def supports_paged_kv(cfg: ModelConfig) -> bool:
     """Paged KV applies to pure full-attention decoders: every layer's
-    cache grows per token and positions are append-only."""
+    cache grows per token and positions are append-only.  Sliding-window
+    ring buffers and recurrent (SSD / RG-LRU) state are O(1)-bounded and
+    keep the dense slot cache; encoder-decoder and stub-frontend archs
+    prefill below the token embedding and stay dense too."""
     return (all(k == "attn" for k in cfg.layer_pattern)
             and not cfg.tail_kinds
             and not cfg.cross_attention
@@ -151,56 +290,124 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # ==========================================================================
 # forward
 # ==========================================================================
+def _block_fwd(kind: str, bp, x, cfg: ModelConfig, *, cache, pos_offset,
+               window_override, cross_cache=None, enc_out=None, active=None,
+               token_mask=None, valid_len=None, block_tables=None,
+               page_size=0, rope=None, plans=None):
+    h, new_cache = mixer_fwd(
+        kind, bp["mixer"], norm_fwd(bp["norm1"], x, cfg.norm), cfg,
+        cache=cache, pos_offset=pos_offset, window_override=window_override,
+        active=active, token_mask=token_mask, valid_len=valid_len,
+        block_tables=block_tables, page_size=page_size, rope=rope,
+        plans=plans)
+    x = x + h
+    new_cross = None
+    if cfg.cross_attention and "cross" in bp:
+        h, new_cross = cross_attention_fwd(
+            bp["cross"], norm_fwd(bp["norm_x"], x, cfg.norm), cfg,
+            enc_out=enc_out, cache=cross_cache)
+        x = x + h
+    aux = 0.0            # a dense MLP adds Python zeros: no launches
+    if "mlp" in bp:
+        h, aux = mlp_fwd(bp["mlp"], norm_fwd(bp["norm2"], x, cfg.norm), cfg)
+        x = x + h
+    return x, new_cache, new_cross, aux
+
+
+def _encoder_fwd(params, cfg: ModelConfig, frames):
+    """frames: (B, enc_len, d_model) stub conv-frontend embeddings."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    x = x + sinusoidal_table(x.shape[1], cfg.d_model,
+                             device=x.device).to(x.dtype)[None]
+    enc_cfg = _encoder_cfg(cfg)
+    for lp in params["encoder"]:
+        x, _, _, _ = _block_fwd("attn", lp, x, enc_cfg, cache=None,
+                                pos_offset=0, window_override=None)
+    return norm_fwd(params["enc_norm"], x, cfg.norm)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
+            extra_embeds=None, frames=None, window_override=None,
             active=None, n_valid=None, last_only: bool = False,
             block_tables=None, page_size: int = 0):
-    """Run the decoder stack over a paged cache.
+    """Run the decoder stack.
 
-    tokens: (B, T) int token ids.
-    cache: from ``init_paged_cache``; written in place.
-    pos_offset: absolute position of tokens[:, 0] (int or (B,) tensor).
-    active: optional (B,) bool — inactive slots write no K/V.
-    n_valid: optional (B,) valid-token counts; pad tokens write no K/V.
+    tokens: (B, T) int token ids, or None when ``extra_embeds`` carry
+        the whole chunk.
+    cache: None (full-sequence prefill), from ``init_cache`` (the dense
+        slot cache), or from ``init_paged_cache`` when ``block_tables``
+        is given; written in place.
+    pos_offset: absolute position of the chunk's first row (int or (B,)
+        tensor).
+    extra_embeds: (B, Tp, d_model) patch embeddings prepended to the token
+        embeddings (VLM stub frontend).
+    frames: (B, enc_len, d_model) audio frames (enc-dec only); runs the
+        encoder and replaces the cross K/V of every row of a dense cache.
+    window_override: a sliding window for every attention layer.
+    active: optional (B,) bool — inactive slots write no state.
+    n_valid: optional (B,) valid-token counts; pad tokens write no state.
     last_only: project only each row's last valid position to vocab.
-    block_tables: (B, pages_per_slot) int physical-page table.
+    block_tables: (B, pages_per_slot) int physical-page table for a paged
+        cache; with ``page_size`` it routes attention through the paged
+        kernels.
     Returns (logits f32, cache, aux_loss): the MoE load-balance terms
     summed over layers, 0 for a dense model.
     """
-    if cache is None or block_tables is None or page_size <= 0:
-        raise NotImplementedError("only the paged-KV forward is ported; "
-                                  "the dense and full-sequence forwards "
-                                  "are ROADMAP.md queue A item 9")
-    if cfg.tail_kinds or cfg.cross_attention or cfg.pos_embedding != "rope":
-        raise NotImplementedError(f"{cfg.name}: tail, cross-attention and "
-                                  f"non-RoPE models are not ported yet")
     dev = params["embed"].device
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dt)
+    x = params["embed"][tokens.long()].to(dt) if tokens is not None else None
+    if extra_embeds is not None:
+        ee = extra_embeds.to(dt)
+        x = ee if x is None else torch.cat([ee, x], dim=1)
     B, T, _ = x.shape
     token_mask = None
     if n_valid is not None:
         token_mask = torch.arange(T, device=dev)[None] < n_valid[:, None]
-    batch_pos = _batch_positions(pos_offset, B, T, dev)
-    rope = rope_tables(batch_pos, cfg.hd, cfg.rope_theta, cfg.rope_fraction)
-    plan = paged_write_plan(batch_pos, block_tables, page_size, active,
-                            token_mask)
 
-    aux_total = 0.0        # a dense MLP adds Python zeros: no launches
-    pattern = cfg.layer_pattern
-    for layer, bp in enumerate(params["layers"]):
-        g, i = divmod(layer, len(pattern))
-        bc = {key: pool[g] for key, pool in cache["blocks"][i].items()}
-        h, _ = attention_fwd(
-            bp["mixer"], norm_fwd(bp["norm1"], x, cfg.norm), cfg,
-            kind=pattern[i], cache=bc, pos_offset=pos_offset, active=active,
-            token_mask=token_mask, block_tables=block_tables,
-            page_size=page_size, rope=rope, plan=plan)
-        x = x + h
-        if "mlp" in bp:
-            h, aux = mlp_fwd(bp["mlp"], norm_fwd(bp["norm2"], x, cfg.norm),
-                             cfg)
-            x = x + h
-            aux_total = aux_total + aux
+    if cfg.pos_embedding in ("learned", "sinusoidal"):
+        po = torch.as_tensor(pos_offset, device=dev).long()
+        ar = torch.arange(T, device=dev)
+        pos = (po[:, None] + ar[None]) if po.dim() else (po + ar)
+        if cfg.pos_embedding == "learned":
+            pe = params["pos_embed"][pos]
+        else:
+            pe = _sinusoidal_of(pos.reshape(-1), cfg.d_model).reshape(
+                pos.shape + (cfg.d_model,))
+        x = x + (pe if po.dim() else pe[None]).to(dt)
+
+    enc_out = None
+    if cfg.cross_attention and frames is not None:
+        enc_out = _encoder_fwd(params, cfg, frames)
+    cross = cache.get("cross") if (cache and cfg.cross_attention) else None
+
+    rope = None
+    if cache is not None and cfg.pos_embedding == "rope":
+        rope = rope_tables(_batch_positions(pos_offset, B, T, dev), cfg.hd,
+                           cfg.rope_theta, cfg.rope_fraction)
+    plans = {}                    # cache-write plans, shared by the layers
+    aux_total = 0.0
+    G, PL = cfg.n_groups, cfg.pattern_len
+    for layer, (kind, bp) in enumerate(zip(_layer_kinds(cfg),
+                                           params["layers"])):
+        g, i = divmod(layer, PL)
+        bc = None
+        if cache is not None:
+            bc = ({key: t[g] for key, t in cache["blocks"][i].items()}
+                  if g < G else cache["tail"][i])
+        cc = None
+        if cross is not None:
+            cc = {"xk": cross["xk"][layer], "xv": cross["xv"][layer]}
+        x, _, nx, aux = _block_fwd(
+            kind, bp, x, cfg, cache=bc, pos_offset=pos_offset,
+            window_override=window_override, cross_cache=cc,
+            enc_out=enc_out, active=active, token_mask=token_mask,
+            valid_len=n_valid, block_tables=block_tables,
+            page_size=page_size, rope=rope, plans=plans)
+        aux_total = aux_total + aux
+        if enc_out is not None and cc is not None:
+            # fresh cross K/V for every row, as the reference stores them
+            cc["xk"].copy_(nx["xk"])
+            cc["xv"].copy_(nx["xv"])
 
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     if last_only:

@@ -387,14 +387,31 @@ def test_attach_and_drain_instances_mid_flight(f32):
 
 
 def test_unported_modes_raise_naming_the_roadmap(f32):
-    _, _, cfg, tp = f32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InstanceEngine(cfg, tp, kv_mode="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Sharded (multi-device) instances still raise, naming ROADMAP.md
+    queue A item 10.  The dense slot cache and the stub frontend, refused
+    before, now run: ``kv_mode="dense"`` and ``window_override`` (a ring
+    of 8 slots) on the paper's model greedy-decode the JAX dense engine's
+    tokens, and the reference's ``ValueError``s stand (``run_frontend`` on
+    a paged engine, a quantized pool or a prefix cache on a dense one)."""
+    jcfg, jp, cfg, tp = f32
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
         InstanceEngine(cfg, tp, devices=["cuda:0", "cuda:1"])
-    eng = InstanceEngine(cfg, tp, n_slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_frontend(0)
+    prompt = _prompt(9, 20, cfg.vocab_size)
+    for kw in ({"kv_mode": "dense"}, {"window_override": 8}):
+        eng = InstanceEngine(cfg, tp, n_slots=2, max_len=64, **kw)
+        ref = JEngine(jcfg, jp, n_slots=2, max_len=64, **kw)
+        assert not eng.paged and not ref.paged
+        assert eng.free_pages is None and eng.mem_pressure == 0.0
+        assert _gen(eng, eng.alloc("r"), prompt, 5) == \
+            _gen(ref, ref.alloc("r"), prompt, 5, item=JItem)
+    with pytest.raises(ValueError, match="dense cache"):
+        InstanceEngine(cfg, tp, n_slots=1, max_len=16).run_frontend(0)
+    with pytest.raises(ValueError, match="paged KV mode"):
+        InstanceEngine(cfg, tp, kv_mode="dense", kv_precision="fp8")
+    with pytest.raises(ValueError, match="paged KV mode"):
+        InstanceEngine(cfg, tp, kv_mode="dense", prefix_cache=True)
+    with pytest.raises(ValueError, match="window_override"):
+        InstanceEngine(cfg, tp, kv_mode="paged", window_override=8)
 
 
 def test_elastic_policy_resizes_the_torch_pool_on_its_own(f32):
@@ -430,3 +447,302 @@ def test_elastic_policy_resizes_the_torch_pool_on_its_own(f32):
     outs = [col.submit(p, 6) for p in burst] + [col.submit(tail, 30)]
     col.run_until_done(outs)
     assert toks == [list(h.generated) for h in outs]
+
+
+# ---------------------------------------------------------------------------
+# the dense slot cache: recurrent models, ring buffers and stub frontends
+# ---------------------------------------------------------------------------
+DENSE_FAMS = ["mamba2-780m", "recurrentgemma-9b"]
+FRONTENDS = ["internvl2-76b", "whisper-large-v3"]
+_DENSE = {}
+
+
+def _dense(arch):
+    """(jax cfg, jax params, port cfg, port params) of a smoke config in
+    f32, built once per module."""
+    if arch not in _DENSE:
+        jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
+        jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+        _DENSE[arch] = (jcfg, jp, cfg, params_from_jax(
+            jax.tree.map(np.asarray, jp), cfg, device="cpu"))
+    return _DENSE[arch]
+
+
+def _continue(eng, slot, chunks, n, item=BatchItem):
+    """Feed ``chunks`` of (tokens, pos) then decode greedily: ``n``
+    tokens."""
+    for toks, pos in chunks[:-1]:
+        eng.run_batch([item(slot, toks, pos)])
+    toks, pos = chunks[-1]
+    return _gen(eng, slot, toks, n, pos0=pos, item=item)
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMS)
+def test_dense_cross_instance_handoff_is_exact(arch):
+    """The reference's ``test_cross_instance_handoff_is_exact`` on the
+    port: alpha prefills 16 tokens, ships its state in two 8-token pieces
+    (recurrent state with the last), and beta continues with the JAX
+    engine's unsplit tokens."""
+    jcfg, jp, cfg, tp = _dense(arch)
+    prompt = _prompt(0, 24, cfg.vocab_size)
+    one = JEngine(jcfg, jp, n_slots=4, max_len=96)
+    ref = _gen(one, one.alloc("r"), prompt, 6, item=JItem)
+    A = InstanceEngine(cfg, tp, n_slots=4, max_len=96)
+    B = InstanceEngine(cfg, tp, n_slots=4, max_len=96)
+    sa = A.alloc("r")
+    A.run_batch([BatchItem(sa, prompt[:16], 0)])
+    pieces = A.export_state(sa, upto=16, chunk=8)
+    assert len(pieces) == 2 and "recurrent" in pieces[-1]
+    sb = B.alloc("r")
+    B.import_state(sb, pieces)
+    assert _gen(B, sb, prompt[16:], 6, pos0=16) == ref
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMS)
+def test_dense_serving_cluster_split_equals_unsplit(arch):
+    """The reference's ``test_serving_cluster_split_equals_unsplit``: a
+    two-instance split cluster on the port gives the unsplit cluster's
+    tokens and the JAX split cluster's, moving the same state bytes."""
+    jcfg, jp, cfg, tp = _dense(arch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 23, 31)]
+
+    def run(cluster):
+        outs = [cluster.submit(p, 10) for p in prompts]
+        cluster.run_until_done(outs)
+        return [list(h.generated) for h in outs], cluster.kv_bytes_moved
+
+    ref, _ = run(ServingCluster(cfg, tp, n_instances=1, split=False,
+                                max_len=128))
+    got, moved = run(ServingCluster(cfg, tp, n_instances=2, split=True,
+                                    max_len=128, hw=A100))
+    exp, jmoved = run(JCluster(jcfg, jp, n_instances=2, split=True,
+                               max_len=128))
+    assert got == ref == exp and all(len(t) == 10 for t in got)
+    assert moved == jmoved > 0
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMS)
+def test_dense_engine_backend_session_matches_jax(arch):
+    """``ServeSession(EngineBackend(kv_mode="auto"), DynaServePolicy)``:
+    the backend settles on the dense cache, and the port's session emits
+    the JAX backend's tokens and moves its bytes (pipelined, so state
+    pieces stream through ``export_state_iter``)."""
+    from repro.core.session import ServeSession as JSession
+    from repro.core.session import SessionConfig as JSessionConfig
+    from repro.engine.backend import EngineBackend as JBackend
+    from repro.sim.policies import DynaServePolicy as JPolicy
+    from repro_torch.core.session import ServeSession, SessionConfig
+    from repro_torch.engine.backend import EngineBackend
+    from repro_torch.sim.policies import DynaServePolicy
+    jcfg, jp, cfg, tp = _dense(arch)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), d)
+            for n, d in ((44, 6), (29, 8), (35, 6), (18, 8))]
+    runs = []
+    for backend, policy, session, config in (
+            (EngineBackend(cfg, tp, n_slots=4, max_len=128, hw=A100),
+             DynaServePolicy, ServeSession, SessionConfig),
+            (JBackend(jcfg, jp, n_slots=4, max_len=128, hw=A100),
+             JPolicy, JSession, JSessionConfig)):
+        assert not backend.paged
+        sess = session(backend, policy(backend.cost, 0.1),
+                       config(n_instances=2, slo=0.1, overlap=True))
+        handles = [sess.generate(p, d, rid=f"r{i}")
+                   for i, (p, d) in enumerate(reqs)]
+        runs.append(([list(h) for h in handles], backend.kv_bytes_moved))
+    (got, moved), (exp, jmoved) = runs
+    assert got == exp and [len(t) for t in got] == [d for _, d in reqs]
+    assert moved == jmoved > 0
+
+
+def _structure(a):
+    """A piece list as nested keys, spans, shapes, dtypes and None."""
+    if isinstance(a, dict):
+        return {k: (tuple(v) if k == "span" else _structure(v))
+                for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return [_structure(v) for v in a]
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), str(a.dtype).replace("torch.", "")
+    return tuple(a.shape), str(np.asarray(a).dtype)
+
+
+def _values(a):
+    if isinstance(a, dict):
+        return {k: _values(v) for k, v in a.items() if k != "span"}
+    if isinstance(a, (list, tuple)):
+        return [_values(v) for v in a]
+    return None if a is None else np.asarray(
+        a.numpy() if isinstance(a, torch.Tensor) else a)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("arch", DENSE_FAMS)
+def test_dense_pieces_cross_packages(arch, direction):
+    """Alpha prefills a 40-token chunk (past recurrentgemma's 32-token
+    window, so the ring ships whole in the final piece and the chunk
+    overwrites its own first 8 keys: the reference's trait) and exports
+    in 8-token pieces; the pieces have the JAX engine's structure (keys,
+    spans, shapes, dtypes, ``None`` entries) and values (state to 1e-4,
+    positions exactly); beta, in the other package, continues with the
+    tokens of one engine that ran the same chunks unsplit."""
+    jcfg, jp, cfg, tp = _dense(arch)
+    prompt = _prompt(3, 48, cfg.vocab_size)
+    chunks = [(prompt[:40], 0), (prompt[40:], 40)]
+    one = JEngine(jcfg, jp, n_slots=2, max_len=96)
+    ref = _continue(one, one.alloc("r"), chunks, 5, item=JItem)
+    JA, TA = (JEngine(jcfg, jp, n_slots=2, max_len=96),
+              InstanceEngine(cfg, tp, n_slots=2, max_len=96))
+    ja, ta = JA.alloc("r"), TA.alloc("r")
+    JA.run_batch([JItem(ja, prompt[:40], 0)])
+    TA.run_batch([BatchItem(ta, prompt[:40], 0)])
+    exp = JA.export_state(ja, upto=40, chunk=8)
+    got = TA.export_state(ta, upto=40, chunk=8)
+    assert _structure(got) == _structure(exp)
+    if arch == "recurrentgemma-9b":
+        assert exp[-1]["rings"][2] is not None and \
+            all(p["blocks"][2] is None for p in exp)
+    for g, e in zip(jax.tree.leaves(_values(got)),
+                    jax.tree.leaves(_values(exp))):
+        if e.dtype == np.int32:
+            assert np.array_equal(g, e)
+        else:
+            np.testing.assert_allclose(g, e, rtol=1e-4, atol=1e-4)
+    if direction == "jax_to_port":
+        B = InstanceEngine(cfg, tp, n_slots=2, max_len=96)
+        sb = B.alloc("x")
+        sb = B.alloc("r")                  # another slot than alpha's
+        B.import_state(sb, exp)
+        toks = _continue(B, sb, chunks[1:], 5)
+    else:
+        B = JEngine(jcfg, jp, n_slots=2, max_len=96)
+        sb = B.alloc("x")
+        sb = B.alloc("r")
+        B.import_state(sb, jax.tree.map(
+            lambda a: a.numpy() if isinstance(a, torch.Tensor) else a, got))
+        toks = _continue(B, sb, chunks[1:], 5, item=JItem)
+    assert toks == ref
+
+
+def _frontend_kw(cfg, rng):
+    if cfg.arch_type == "vlm":
+        return {"extra_embeds": (0.02 * rng.standard_normal(
+            (cfg.num_patches, cfg.d_model))).astype(np.float32)}
+    return {"frames": (0.02 * rng.standard_normal(
+        (cfg.encoder_len, cfg.d_model))).astype(np.float32)}
+
+
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_run_frontend_matches_jax_engine(arch):
+    """The reference's ``test_vlm_and_audio_frontend_prefill``, held
+    against the JAX engine: the frontend's logits, then four decode
+    steps' greedy tokens."""
+    jcfg, jp, cfg, tp = _dense(arch)
+    rng = np.random.default_rng(0)
+    kw = _frontend_kw(cfg, rng)
+    prompt = rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+    n_extra = cfg.num_patches if cfg.arch_type == "vlm" else 0
+    streams = []
+    for eng, item in ((InstanceEngine(cfg, tp, n_slots=2, max_len=96),
+                       BatchItem),
+                      (JEngine(jcfg, jp, n_slots=2, max_len=96), JItem)):
+        slot = eng.alloc("r")
+        logits = np.asarray(eng.run_frontend(slot, tokens=prompt,
+                                             pos_offset=0, **kw))
+        assert logits.shape == (cfg.vocab_size,)
+        toks = [int(logits.argmax())]
+        pos = n_extra + len(prompt)
+        for _ in range(4):
+            out = eng.run_batch([item(slot, np.array([toks[-1]], np.int32),
+                                      pos, want_logits=True)])
+            toks.append(int(out[slot].argmax()))
+            pos += 1
+        streams.append((logits, toks))
+    np.testing.assert_allclose(streams[0][0], streams[1][0], rtol=3e-4,
+                               atol=3e-4)
+    assert streams[0][1] == streams[1][1]
+
+
+def test_second_frontend_rewrites_every_slots_cross_kv():
+    """The reference's trait, kept: ``run_frontend`` with frames
+    re-encodes every row (inactive rows on zero frames) and replaces the
+    cross K/V of every slot, so slot 0's cross K/V become the projections
+    of the encoder run on zero frames once slot 1's request arrives.  Both
+    engines agree on the caches and on slot 0's next tokens."""
+    jcfg, jp, cfg, tp = _dense("whisper-large-v3")
+    from repro_torch.models.mixers import _project_qkv
+    from repro_torch.models.model import _encoder_fwd
+    rng = np.random.default_rng(1)
+    fr0, fr1 = (_frontend_kw(cfg, rng)["frames"] for _ in range(2))
+    prompts = [rng.integers(0, cfg.vocab_size, 6).astype(np.int32)
+               for _ in range(2)]
+    E, J = (InstanceEngine(cfg, tp, n_slots=2, max_len=64),
+            JEngine(jcfg, jp, n_slots=2, max_len=64))
+    toks = []
+    for eng, item in ((E, BatchItem), (J, JItem)):
+        s0, s1 = eng.alloc("a"), eng.alloc("b")
+        t0 = int(np.asarray(eng.run_frontend(s0, frames=fr0,
+                                             tokens=prompts[0])).argmax())
+        eng.run_frontend(s1, frames=fr1, tokens=prompts[1])
+        toks.append(_gen(eng, s0, np.array([t0], np.int32), 3, pos0=6,
+                         item=item))
+    assert toks[0] == toks[1]
+    for k in ("xk", "xv"):
+        np.testing.assert_allclose(E.cache["cross"][k].numpy(),
+                                   np.asarray(J.cache["cross"][k]),
+                                   rtol=3e-4, atol=3e-4)
+    with torch.no_grad():
+        enc0 = _encoder_fwd(tp, cfg, torch.zeros(1, cfg.encoder_len,
+                                                 cfg.d_model))
+        for layer, lp in enumerate(tp["layers"]):
+            _, xk, xv = _project_qkv(lp["cross"], cfg, enc0[:, :1], enc0)
+            np.testing.assert_allclose(E.cache["cross"]["xk"][layer, 0],
+                                       xk[0], rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(E.cache["cross"]["xv"][layer, 0],
+                                       xv[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMS + FRONTENDS)
+def test_dense_state_bytes_equal_jax(arch):
+    jcfg, jp, cfg, tp = _dense(arch)
+    eng = InstanceEngine(cfg, tp, n_slots=1, max_len=96)
+    ref = JEngine(jcfg, jp, n_slots=1, max_len=96)
+    for upto in (1, 16, 40, 96):
+        assert eng.state_bytes(upto) == ref.state_bytes(upto)
+        assert eng.state_bytes(upto, as_precision="bf16") == \
+            ref.state_bytes(upto, as_precision="bf16")
+
+
+@pytest.mark.parametrize("arch", DENSE_FAMS)
+def test_reused_dense_slot_starts_clean(arch):
+    """A request on a freed and reused dense slot gets the logits of a
+    fresh engine in the port, which empties the slot when it hands it
+    out.  The reference leaves the previous request's recurrent state and
+    ring entries there (a fault of the reference, ``ROADMAP.md`` queue
+    C), so its reused slot's logits differ; that is checked too, so that
+    a change on either side shows."""
+    jcfg, jp, cfg, tp = _dense(arch)
+    first, second = _prompt(20, 30, cfg.vocab_size), \
+        _prompt(21, 12, cfg.vocab_size)
+    logits = {}
+    for name, make, item in (
+            ("port", lambda: InstanceEngine(cfg, tp, n_slots=1, max_len=64),
+             BatchItem),
+            ("jax", lambda: JEngine(jcfg, jp, n_slots=1, max_len=64),
+             JItem)):
+        fresh = make()
+        ref = fresh.run_batch([item(fresh.alloc("b"), second, 0, True)])[0]
+        eng = make()
+        slot = eng.alloc("a")
+        _gen(eng, slot, first, 4, item=item)
+        eng.free(slot)
+        got = eng.run_batch([item(eng.alloc("b"), second, 0, True)])[0]
+        logits[name] = np.asarray(ref), np.asarray(got)
+    np.testing.assert_array_equal(logits["port"][1], logits["port"][0])
+    np.testing.assert_allclose(logits["port"][0], logits["jax"][0],
+                               rtol=1e-4, atol=1e-4)
+    assert np.abs(logits["jax"][1] - logits["jax"][0]).max() > 1e-2

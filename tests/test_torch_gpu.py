@@ -232,3 +232,95 @@ def test_moe_route_on_card_matches_cpu_with_ties(cuda_device):
         yc, _ = moe_fwd(pc, xc, cfg, capacity_factor=cf)
         torch.testing.assert_close(yc.cpu(), y, rtol=1e-4, atol=1e-4)
     assert not exp["keep"].all()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
+                                  "whisper-large-v3", "internvl2-76b"])
+def test_dense_engine_on_card_matches_cpu(cuda_device, arch):
+    """A smoke config on the dense slot cache (f32, TF32 off) greedy-decodes
+    the same tokens on the card as on the CPU from the same weights,
+    through the stub frontend where the model has one, and launches
+    neither paged kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine import BatchItem, InstanceEngine
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    kw = {}
+    if cfg.arch_type == "vlm":
+        kw["extra_embeds"] = (0.02 * rng.standard_normal(
+            (cfg.num_patches, cfg.d_model))).astype(np.float32)
+    if cfg.arch_type == "audio":
+        kw["frames"] = (0.02 * rng.standard_normal(
+            (cfg.encoder_len, cfg.d_model))).astype(np.float32)
+    start = (pda.launches, cpa.launches)
+    streams = []
+    for params in (cpu, _to(cpu, cuda_device)):
+        eng = InstanceEngine(cfg, params, n_slots=4, max_len=128)
+        assert not eng.paged
+        slot = eng.alloc("r")
+        if kw:
+            first = eng.run_frontend(slot, tokens=prompt, **kw)
+        else:
+            first = eng.run_batch([BatchItem(slot, prompt, 0, True)])[slot]
+        toks = [int(first.argmax())]
+        pos = len(prompt) + (cfg.num_patches if "extra_embeds" in kw else 0)
+        for _ in range(7):
+            out = eng.run_batch([BatchItem(
+                slot, np.array([toks[-1]], np.int32), pos, want_logits=True)])
+            toks.append(int(out[slot].argmax()))
+            pos += 1
+        streams.append(toks)
+    assert streams[0] == streams[1]
+    assert (pda.launches, cpa.launches) == start
+
+
+def test_ring_write_past_the_window_on_card_matches_cpu(cuda_device):
+    """A 64-token chunk into recurrentgemma's 32-slot ring writes two
+    positions to every slot; the card keeps the last valid writer, as the
+    CPU does, on every row (one of them padded to 45 tokens): positions
+    equal exactly, K/V and states to f32 tolerance, 20 times over (a
+    nondeterministic duplicate write would differ on some run)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import forward, init_cache, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("recurrentgemma-9b")
+    cpu = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    gpu = _to(cpu, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 64)))
+    n_valid = torch.tensor([64, 45, 64, 33])
+
+    def run(params, dev):
+        cache = init_cache(cfg, 4, 96, device=dev)
+        with torch.no_grad():
+            logits, cache, _ = forward(
+                params, cfg, toks.to(dev), cache=cache,
+                pos_offset=torch.zeros(4, dtype=torch.long, device=dev),
+                n_valid=n_valid.to(dev), last_only=True)
+        return logits.cpu(), _to(cache, "cpu")
+
+    exp_logits, exp = run(cpu, "cpu")
+    ring = exp["blocks"][2]
+    assert ring["k"].shape[2] == cfg.window == 32
+    assert sorted(ring["pos"][0, 1].tolist()) == list(range(13, 45))
+    for _ in range(20):
+        logits, got = run(gpu, cuda_device)
+        torch.testing.assert_close(logits, exp_logits, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got["blocks"][2]["pos"], ring["pos"])
+        for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(exp)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -88,14 +88,36 @@ def test_paged_capable_configs_are_the_nine():
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
                                   if a not in PAGED_ARCHS])
 def test_unpaged_configs_raise_naming_the_roadmap(arch):
-    """The registry lists every config; the gates sit where the features
-    are missing: the port's weights and engine refuse a model that needs
-    the dense slot cache or a recurrent, encoder or frontend block."""
+    """The four configs that cannot use a page pool (mamba2,
+    recurrentgemma, whisper, internvl2) no longer raise: the port's
+    ``init_params`` builds each, ``InstanceEngine`` settles on the dense
+    slot cache for it, refuses a page pool for it, and one engine step
+    (a 12-token prompt on a 2-slot engine, through the stub frontend for
+    whisper and internvl2) gives the JAX engine's logits."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InstanceEngine(cfg, {"embed": torch.zeros(1)})
+    tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    jcfg, jp, cfg, tp = _weights(arch)
+    with pytest.raises(ValueError, match="paged"):
+        InstanceEngine(cfg, tp, kv_mode="paged")
+    eng = InstanceEngine(cfg, tp, n_slots=2, max_len=64)
+    jeng = JEngine(jcfg, jp, n_slots=2, max_len=64)
+    assert not eng.paged and not jeng.paged
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+    kw = {}
+    if cfg.arch_type == "vlm":
+        kw["extra_embeds"] = (0.02 * rng.standard_normal(
+            (cfg.num_patches, cfg.d_model))).astype(np.float32)
+    if cfg.arch_type == "audio":
+        kw["frames"] = (0.02 * rng.standard_normal(
+            (cfg.encoder_len, cfg.d_model))).astype(np.float32)
+    if kw:
+        got = eng.run_frontend(eng.alloc("r"), tokens=prompt, **kw)
+        exp = jeng.run_frontend(jeng.alloc("r"), tokens=prompt, **kw)
+    else:
+        got = eng.run_batch([BatchItem(eng.alloc("r"), prompt, 0, True)])[0]
+        exp = jeng.run_batch([JItem(jeng.alloc("r"), prompt, 0, True)])[0]
+    np.testing.assert_allclose(got, np.asarray(exp), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("arch", PAGED_ARCHS)

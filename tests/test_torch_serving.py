@@ -51,9 +51,13 @@ def _counts(lines):
     return head, rows
 
 
-def test_engine_launcher_on_cpu_reports_like_the_jax_launcher():
-    argv = ["--smoke", "--requests", "4", "--prompt-len", "20",
-            "--max-new", "6"]
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-780m",
+                                  "recurrentgemma-9b"])
+def test_engine_launcher_on_cpu_reports_like_the_jax_launcher(arch):
+    """Paged KV (the paper's model) and the dense slot cache (the two
+    recurrent models) behind the same launcher report."""
+    argv = ["--smoke", "--arch", arch, "--requests", "4", "--prompt-len",
+            "20", "--max-new", "6"]
     got = _run(tserve.main, argv + ["--device", "cpu"])
     exp = _run(jserve.main, argv)
     assert _shape(got) == _shape(exp)
