@@ -11,11 +11,12 @@ exits non-zero without the final result line:
 2. build   — both CUDA kernels compiled by nvcc for sm_90a from
              ``src/repro_torch/csrc`` (``-Xptxas -v`` report printed).
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the sweep shapes of the JAX kernel tests and at both
+             at the sweep shapes of the JAX kernel tests and at the
              serving paths' shapes (Qwen2.5-14B: H 40, KV 8; Qwen3-30B-A3B:
-             H 32, KV 4), for bf16, fp8 and int8 pools, plus split-KV
-             edges, poison pages and NaN past the prefill edges; then
-             kernel, plain and SDPA times at both paths' shapes beside
+             H 32, KV 4; Phi-4-mini: H 24, KV 8), for bf16, fp8 and int8
+             pools, plus split-KV edges, poison pages and NaN past the
+             prefill edges; then kernel, plain and SDPA times at the three
+             paths' shapes beside
              the kernel's bound: event time of a loop of wrapper calls and
              device time of the kernels alone (torch.profiler), the kernel
              and SDPA timed in turns.
@@ -53,6 +54,16 @@ exits non-zero without the final result line:
              full width and two layers (RecurrentGemma five) agrees with
              the CPU in f32, and a chunk longer than the ring keeps the
              CPU's last writer on the card.
+10. train  — (a) Phi-4-mini-3.8B and Mamba2-780M at full width and two
+             layers, f32: one train step on the card against the CPU from
+             the same weights and batch, and 4 microbatches with remat
+             against 1 without; (b) the whole Phi-4-mini-3.8B trained in
+             bf16 with f32 AdamW moments and remat through ``train_loop``
+             (loss must fall by more than 0.5), two more steps under
+             torch.profiler, and a checkpoint round trip of the whole state
+             (bit-equal); (c) moments freed, the trained weights serve the
+             serve phase's 8 requests through DynaServe (launch counters
+             zeroed just before and read just after) and colocation.
 
 Optional, not in the default run: ``--phases profile`` profiles prefill
 and decode steps of one engine each of Qwen2.5-14B, Qwen3-30B-A3B,
@@ -78,7 +89,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "model", "serve", "moe", "http", "launch",
-          "dense")                                 # default
+          "dense", "train")                        # default
 EXTRA_PHASES = ("profile",)                 # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
@@ -101,6 +112,7 @@ MODEL_TOL = 0.1
 
 
 MOE_PATH = "qwen3-moe-30b-a3b"
+TRAIN_PATH = "phi4-mini-3.8b"
 KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
 
 
@@ -347,6 +359,33 @@ class KernelChecks:
                            f"NaN past Tq {Tq} and S {S} {dtype} {prec}")
 
 
+def serving_paths(kc, paths):
+    """A serving path's shapes (8 slots, page 8, 512-page tables, 512-token
+    chunks against 4096 keys) for bf16, fp8 and int8 pools: decode and
+    prefill against the plain versions, poison pages past the lengths and
+    inactive padded slots.  ``paths``: (name, H, KV, decode lengths)."""
+    import torch
+    bf16 = torch.bfloat16
+    B, hd, page, n_pp = 8, 128, 8, 512
+    for path, H, KV, lens in paths:
+        for prec in (None, "fp8", "int8"):
+            kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=lens,
+                           prec=prec, main_path=path,
+                           what=f"{path} {prec or 'bf16'} pool")
+            kc.decode_poison(B, H, KV, hd, page, 64, bf16,
+                             [1, 9, 100, 200, 255, 256, 511, 512], prec=prec)
+            kc.prefill_case(B, 512, 4096, H, KV, hd, bf16,
+                            offsets=[0, 0, 512, 1000, 1536, 2048, 3000, 3584],
+                            prec=prec, main_path=path,
+                            what=f"{path} {prec or 'bf16'} KV")
+            kc.prefill_poison(2, 512, 2048, H, KV, hd, bf16, [0, 1000],
+                              prec=prec)
+        # inactive padded slots: length 1 and a zero table row
+        kc.decode_case(B, H, KV, hd, page, 4, bf16, lens=[1] * B,
+                       main_path=path, what=f"{path} inactive padded slots",
+                       zero_rows=range(B))
+
+
 def run_kernel_checks(seed: int):
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
@@ -383,25 +422,9 @@ def run_kernel_checks(seed: int):
     # chunks of 512; Qwen2.5-14B (H 40, KV 8, 5 query heads a KV head) and
     # Qwen3-30B-A3B (H 32, KV 4, 8 query heads a KV head)
     B, hd, page, n_pp = 8, 128, 8, 512
-    for path, H, KV, lens in (
-            ("qwen2.5-14b", 40, 8, [1, 17, 300, 1024, 2047, 3000, 4095, 4096]),
-            (MOE_PATH, 32, 4, [128, 300, 777, 1024, 2047, 3000, 4095, 4096])):
-        for prec in (None, "fp8", "int8"):
-            kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=lens,
-                           prec=prec, main_path=path,
-                           what=f"{path} {prec or 'bf16'} pool")
-            kc.decode_poison(B, H, KV, hd, page, 64, bf16,
-                             [1, 9, 100, 200, 255, 256, 511, 512], prec=prec)
-            kc.prefill_case(B, 512, 4096, H, KV, hd, bf16,
-                            offsets=[0, 0, 512, 1000, 1536, 2048, 3000, 3584],
-                            prec=prec, main_path=path,
-                            what=f"{path} {prec or 'bf16'} KV")
-            kc.prefill_poison(2, 512, 2048, H, KV, hd, bf16, [0, 1000],
-                              prec=prec)
-        # inactive padded slots: length 1 and a zero table row
-        kc.decode_case(B, H, KV, hd, page, 4, bf16, lens=[1] * B,
-                       main_path=path, what=f"{path} inactive padded slots",
-                       zero_rows=range(B))
+    serving_paths(kc, (
+        ("qwen2.5-14b", 40, 8, [1, 17, 300, 1024, 2047, 3000, 4095, 4096]),
+        (MOE_PATH, 32, 4, [128, 300, 777, 1024, 2047, 3000, 4095, 4096])))
     H, KV = 40, 8
     # split-KV edges at the main path's table width (spans of SPLIT = 256
     # tokens, 32 pages of 8): lengths 1, page-1, SPLIT-1, SPLIT, SPLIT+1
@@ -431,6 +454,10 @@ def run_kernel_checks(seed: int):
     # the other bodies read through row views too
     kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, bf16, [20, 37])
     kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, f32, [20, 37])
+    # Phi-4-mini's serving path (H 24, KV 8, 3 query heads a KV head), last,
+    # so that the cases above keep the inputs their generator gave them
+    serving_paths(kc, ((TRAIN_PATH, 24, 8,
+                        [1, 64, 513, 1024, 1999, 2048, 3333, 4096]),))
     log(f"[kernels] {kc.n_cases} cases within tolerance "
         f"(bf16 {TOL['bfloat16']}, f32 {TOL['float32']}, poison exact); "
         f"max abs err at the serving paths' shapes: "
@@ -760,23 +787,25 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
 
 
 def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
-              n_pages=4096, max_chunk=512, reqs=None):
-    """Serve through DynaServe (the main path, counted) then colocation.
-    Returns the main path's launch counts."""
+              n_pages=4096, max_chunk=512, reqs=None, params=None):
+    """Serve through DynaServe (the main path, counted) then colocation,
+    on ``params`` (random weights from ``seed`` when not given).  Returns
+    the main path's launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     cfg = cfg or get_config("qwen2.5-14b")
-    gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.monotonic()
-    params = init_params(cfg, gen, device=device)
-    n_params = sum(t.numel() for lp in params["layers"]
-                   for d in lp.values() for t in d.values()) + \
-        params["embed"].numel() + params["lm_head"].numel()
+    origin = "given"
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(cfg, gen, device=device)
+        origin = f"generated in {time.monotonic() - t0:.1f} s"
+    n_params = sum(t.numel() for t in flat(params).values())
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}: {n_params / 1e9:.3f}B params "
-        f"generated in {time.monotonic() - t0:.1f} s")
+        f"{origin}")
     reqs = reqs or make_requests(seed, cfg.vocab_size)
     outs, launches = serve_counted(cfg, params, reqs, card, device,
                                    "dynaserve", n_slots=n_slots,
@@ -1604,6 +1633,299 @@ def run_dense(seed: int, card: str, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training, then serving the trained weights
+# ---------------------------------------------------------------------------
+#: card against CPU in f32 (TF32 off): loss, grad norm, lr and the moments
+#: to F32_RTOL of their own largest magnitude; the updated params to the
+#: reference's microbatch bound (tests/test_training.py), 3e-3 absolute:
+#: Adam's first step turns gradient differences near eps into updates of
+#: up to lr (1e-3 here)
+TRAIN_PARAM_ATOL = 3e-3
+#: microbatching 4 (with remat) against 1 (without), the same bound: loss
+#: within 2e-3, params rtol = atol = 3e-3
+MB_LOSS_TOL, MB_PARAM_TOL = 2e-3, 3e-3
+#: the whole model's run: steps, batch, sequence, lr, warm-up, and how many
+#: extra steps run under torch.profiler
+TRAIN_STEPS, TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_WARMUP = 30, 4, 1024, 3e-4, 5
+PROFILED_STEPS = 2
+
+
+def short_key(path: str) -> str:
+    """``['layers'][0]['mixer']['wq']`` -> ``layers.0.mixer.wq``."""
+    return ".".join(part.strip("'") for part in path[1:-1].split("]["))
+
+
+def leaf_errors(got, exp):
+    """{short path: (max abs error, max |expected|)} of two trees."""
+    from repro_torch.utils.tree import tree_items
+    exp = dict(tree_items(exp))
+    out = {}
+    for key, a in tree_items(got):
+        b = exp[key].float()
+        out[short_key(key)] = (float((a.float().cpu() - b).abs().max()),
+                               float(b.abs().max()))
+    return out
+
+
+def run_train_card_vs_cpu(seed: int, name: str, n_layers: int = 2,
+                          B: int = 2, T: int = 128, device="cuda"):
+    """(a) The full-width model cut to ``n_layers``, in f32 (TF32 off):
+    one ``make_train_step`` (remat on) on the card and on the CPU from the
+    same weights and batch, then on the card 4 microbatches with remat
+    against 1 without on a batch of 4."""
+    import torch
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.tree import tree_map
+    cfg, gpu = dense_model(seed, name, device=device, n_layers=n_layers,
+                           dtype="float32")
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), gpu)
+    init = tree_map(torch.clone, cpu)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batch = next(token_batches(cfg, B, T, seed=seed))
+    step = make_train_step(cfg, opt_cfg)
+    t0 = time.monotonic()
+    gpu, g_opt, g_m = step(gpu, adamw_init(gpu, opt_cfg), batch)
+    float(g_m["loss"])                       # waits for the device
+    t_card = time.monotonic() - t0
+    t0 = time.monotonic()
+    cpu, c_opt, c_m = step(cpu, adamw_init(cpu, opt_cfg), batch)
+    t_cpu = time.monotonic() - t0
+    bad = []
+    scalars = {}
+    for k in ("loss", "grad_norm", "lr"):
+        a, b = float(g_m[k]), float(c_m[k])
+        scalars[k] = (a, b)
+        if abs(a - b) > F32_RTOL * abs(b):
+            bad.append(f"{k} {a} vs {b}")
+    errs = {"params": leaf_errors(gpu, cpu),
+            "m": leaf_errors(g_opt["m"], c_opt["m"]),
+            "v": leaf_errors(g_opt["v"], c_opt["v"])}
+    for tree, e in errs.items():
+        for key, (err, scale) in e.items():
+            lim = TRAIN_PARAM_ATOL if tree == "params" else F32_RTOL * scale
+            if err > lim:
+                bad.append(f"{tree} {key} {err:.3e} > {lim:.3e}")
+    log(f"[train] {cfg.name} card vs CPU, f32, {n_layers} layers full width, "
+        f"one train step (remat) on B={B} T={T}: "
+        + ", ".join(f"{k} {a:.7g} vs {b:.7g}" for k, (a, b) in scalars.items())
+        + f" (bound {F32_RTOL} relative); card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s")
+    for tree, e in errs.items():
+        bound = (f"bound {TRAIN_PARAM_ATOL} absolute" if tree == "params"
+                 else f"bound {F32_RTOL} x each leaf's largest magnitude")
+        log(f"[train] {cfg.name} card vs CPU, largest error of every updated "
+            f"{tree} leaf ({bound}): "
+            + ", ".join(f"{k} {err:.2e}" + ("" if tree == "params"
+                                             else f"/{scale:.2e}")
+                        for k, (err, scale) in e.items()))
+    if bad:
+        raise AssertionError(f"{cfg.name} train step card vs CPU: {bad}")
+    del gpu, cpu, g_opt, c_opt
+
+    batch4 = next(token_batches(cfg, 4, T, seed=seed + 1))
+    runs = {}
+    for n, remat in ((1, False), (4, True)):
+        p = tree_map(lambda t: t.to(device, copy=True), init)
+        p, _, m = make_train_step(cfg, opt_cfg, num_microbatches=n,
+                                  remat=remat)(p, adamw_init(p, opt_cfg),
+                                               batch4)
+        runs[n] = (p, float(m["loss"]))
+    (p1, l1), (p4, l4) = runs[1], runs[4]
+    worst = max((float(((a - b).abs() - MB_PARAM_TOL * b.abs()).max()), k)
+                for (k, a), b in zip(flat(p4).items(), flat(p1).values()))
+    log(f"[train] {cfg.name} on the card, 4 microbatches with remat vs 1 "
+        f"without, B=4 T={T}: loss {l4:.7g} vs {l1:.7g} (|diff| "
+        f"{abs(l4 - l1):.2e}, bound {MB_LOSS_TOL}); params: largest "
+        f"|a - b| - {MB_PARAM_TOL}|b| = {worst[0]:.2e} at {worst[1]} (bound "
+        f"{MB_PARAM_TOL})")
+    if abs(l4 - l1) > MB_LOSS_TOL or worst[0] > MB_PARAM_TOL:
+        raise AssertionError(f"{cfg.name}: microbatched step differs")
+    del runs, p1, p4, init
+
+
+@contextlib.contextmanager
+def optimizer_range():
+    """Put the train step's AdamW update under a
+    ``record_function("optimizer")`` range for the profiler."""
+    import torch
+    from repro_torch.training import train
+    upd = train.adamw_update
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function("optimizer"):
+            return upd(*args, **kwargs)
+
+    train.adamw_update = ranged
+    try:
+        yield
+    finally:
+        train.adamw_update = upd
+
+
+def run_checkpoint_roundtrip(params, opt_state, label: str, device="cuda"):
+    """Save the state into a temporary directory under ``build/``, load it
+    back onto the same devices, require every leaf bit-equal, delete the
+    directory.  Returns (bytes on disk, save s, load s)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.training.checkpoint import (
+        latest_checkpoint, load_checkpoint, save_checkpoint,
+    )
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.monotonic()
+        path = save_checkpoint(d, params, opt_state, step=TRAIN_STEPS)
+        t_save = time.monotonic() - t0
+        n_bytes = Path(path).stat().st_size
+        assert latest_checkpoint(d) == path
+        t0 = time.monotonic()
+        p2, o2, step = load_checkpoint(path, params, opt_state)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        assert step == TRAIN_STEPS
+        dtypes = set()
+        for (k, a), b in zip(flat((params, opt_state)).items(),
+                             flat((p2, o2)).values()):
+            dtypes.add(str(a.dtype).removeprefix("torch."))
+            if a.dtype != b.dtype or a.device != b.device or not torch.equal(
+                    a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                    b.view(torch.int16) if b.dtype == torch.bfloat16 else b):
+                raise AssertionError(f"checkpoint round trip: {k} differs")
+        n_leaves = len(flat((params, opt_state)))
+        del p2, o2
+    finally:
+        shutil.rmtree(d)
+    log(f"[train] {label} checkpoint round trip: {n_leaves} leaves "
+        f"({'/'.join(sorted(dtypes))}) bit-equal after save + load onto the "
+        f"card; {n_bytes} B on disk, save {t_save:.1f} s, load {t_load:.1f} "
+        f"s; directory deleted")
+    return n_bytes, t_save, t_load
+
+
+def run_train_whole(seed: int, card: str, device="cuda"):
+    """(b) The whole Phi-4-mini-3.8B in bf16 with f32 AdamW moments and
+    remat: ``TRAIN_STEPS`` steps of ``token_batches`` through
+    ``train_loop``, then ``PROFILED_STEPS`` more under torch.profiler, then
+    a checkpoint round trip of the state.  Returns (cfg, trained params,
+    optimizer state)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.training import make_train_step, train_loop
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg, params = dense_model(seed, TRAIN_PATH, device=device)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_params = sum(t.numel() for t in flat(params).values())
+    tokens = TRAIN_B * TRAIN_T
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS)
+    batches = token_batches(cfg, TRAIN_B, TRAIN_T, seed=seed)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    res = train_loop(cfg, params, batches, opt_cfg, steps=TRAIN_STEPS,
+                     log_every=1)
+    wall = time.monotonic() - t0
+    params, opt = res["params"], res["opt_state"]
+    hist = res["history"]
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    prev = 0.0
+    walls = []
+    for h in hist:
+        walls.append(h["elapsed"] - prev)
+        prev = h["elapsed"]
+        log(f"[train] {cfg.name} step {h['step']}: loss {h['loss']:.4f}, lr "
+            f"{h['lr']:.3e}, wall {walls[-1] * 1e3:.1f} ms, "
+            f"{tokens / walls[-1]:.0f} tokens/s")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: non-finite training loss {losses}")
+    if not losses[-1] < losses[0] - 0.5:
+        raise AssertionError(f"{cfg.name}: loss fell from {losses[0]:.4f} to "
+                             f"{losses[-1]:.4f}, not by more than 0.5")
+    steady = float(np.median(walls[2:]))
+    flops = 8 * n_params * tokens       # forward, remat recompute, backward
+    log(f"[train] {cfg.name} whole ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied: {n_params / 1e9:.3f}B "
+        f"params), {cfg.dtype} with {opt_cfg.moment_dtype} moments and remat, "
+        f"B={TRAIN_B} T={TRAIN_T}: {TRAIN_STEPS} steps in {wall:.1f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (fell {losses[0] - losses[-1]:.4f}"
+        f", more than 0.5 required); median step {steady * 1e3:.1f} ms from "
+        f"step 2, {tokens / steady:.0f} tokens/s, 8*N*tokens = "
+        f"{flops / 1e12:.1f} TFLOP a step = {flops / steady / 1e12:.1f} "
+        f"TFLOP/s, {flops / steady / BF16_FLOPS_PER_S:.3f} of the bf16 "
+        f"data-sheet peak; peak memory {peak / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated) of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9 if cuda else 0:.3f}; "
+        f"card {card}")
+
+    step_fn = make_train_step(cfg, opt_cfg)
+    sync()
+    with optimizer_range(), profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            params, opt, m = step_fn(params, opt, next(batches))
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.name != "optimizer":
+            cls = _kernel_class(ev.name)
+            dev[cls] = dev.get(cls, 0.0) + ev.time_range.elapsed_us()
+    busy = sum(dev.values())
+    inside = _range_kernels(prof, "optimizer")
+    if cuda and not inside:
+        raise RuntimeError("the profiler tied no kernel to the optimizer")
+    opt_us = sum(k.duration for k in inside)
+    dev["other"] = dev.get("other", 0.0) - opt_us
+    dev["optimizer"] = opt_us
+    n = PROFILED_STEPS
+    log(f"[train] {cfg.name} {n} steps under torch.profiler (lr 0 past the "
+        f"schedule's end, the same work): wall {wall_us / n / 1e3:.1f} ms a "
+        f"step; device ms a step by class: " + ", ".join(
+            f"{k} {v / n / 1e3:.3f}" for k, v in
+            sorted(dev.items(), key=lambda kv: -kv[1]))
+        + f"; idle share {1 - busy / wall_us:.3f}; card {card}")
+    return cfg, params, opt
+
+
+def run_train(seed: int, card: str, device="cuda"):
+    """Phase 10.  (a) Phi-4-mini-3.8B and Mamba2-780M at full width and 2
+    layers: a train step on the card against the CPU in f32, and
+    microbatching against none; (b) the whole Phi-4-mini trained in bf16,
+    with a checkpoint round trip; (c) its trained weights served through
+    DynaServe, kernel launches counted.  Returns (c)'s launches."""
+    import torch
+    empty = torch.cuda.empty_cache if device == "cuda" else (lambda: None)
+    t0 = time.monotonic()
+    for name in (TRAIN_PATH, "mamba2-780m"):
+        run_train_card_vs_cpu(seed, name, device=device)
+        gc.collect()
+        empty()
+    cfg, params, opt = run_train_whole(seed, card, device=device)
+    gc.collect()
+    empty()
+    run_checkpoint_roundtrip(params, opt, f"{cfg.name} whole state",
+                             device=device)
+    del opt
+    gc.collect()
+    empty()
+    launches = run_serve(seed, card, cfg=cfg, params=params, device=device)
+    log(f"[train] phase wall {time.monotonic() - t0:.1f} s; card {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where a step's device time goes
 # ---------------------------------------------------------------------------
 def _kernel_class(name: str) -> str:
@@ -1828,11 +2150,12 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     errs = {}
-    times, moe_times = {}, {}
+    times, moe_times, train_times = {}, {}, {}
     if "kernels" in phases:
         errs = run_kernel_checks(args.seed)
         times = time_kernels(args.seed, "qwen2.5-14b", 40, 8)
         moe_times = time_kernels(args.seed, MOE_PATH, 32, 4)
+        train_times = time_kernels(args.seed, TRAIN_PATH, 24, 8)
         torch.cuda.empty_cache()
     if "model" in phases:
         run_model_check(args.seed)
@@ -1866,6 +2189,10 @@ def main(argv=None) -> int:
         run_dense(args.seed, card)
         gc.collect()
         torch.cuda.empty_cache()
+    if "train" in phases:
+        launches[TRAIN_PATH] = run_train(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "profile" in phases:
         from repro_torch.configs import get_config
         for name in ("qwen2.5-14b", MOE_PATH) + DENSE_PATHS:
@@ -1894,8 +2221,9 @@ def main(argv=None) -> int:
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
             "library_device_ms": t.get("library_device_ms"),
-            # the same times at the Qwen3-30B-A3B path's shapes
-            MOE_PATH: moe_times.get(name)})
+            # the same times at the Qwen3-30B-A3B and Phi-4-mini shapes
+            MOE_PATH: moe_times.get(name),
+            TRAIN_PATH: train_times.get(name)})
     log(f"[total] phases {','.join(phases)} passed in "
         f"{time.monotonic() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 ``params_from_jax`` maps the pytree ``repro.models.model.init_params``
 builds, passed in as numpy arrays, onto the port's parameter dict, so
-the two packages can be run on the same weights.  Nothing here imports
+the two packages can be run on the same weights (and
+``opt_state_from_jax`` the AdamW state the same way).  Nothing here imports
 JAX or ``ml_dtypes``: JAX's bfloat16 / float8 numpy arrays are
 reinterpreted by their raw bits.
 """
@@ -66,3 +67,14 @@ def params_from_jax(np_params, cfg: ModelConfig, device=None):
         out["encoder"] = [conv(np_params["encoder"], l)
                           for l in range(cfg.encoder_layers)]
     return out
+
+
+def opt_state_from_jax(np_opt_state, cfg: ModelConfig, device=None):
+    """The reference's AdamW state ``{"m", "v", "step"}`` (leaves as numpy
+    arrays) as the port's: ``m`` and ``v`` map like the params, ``step``
+    becomes an int32 tensor."""
+    dev = resolve_device(device)
+    return {"m": params_from_jax(np_opt_state["m"], cfg, dev),
+            "v": params_from_jax(np_opt_state["v"], cfg, dev),
+            "step": torch.tensor(np.asarray(np_opt_state["step"]),
+                                 dtype=torch.int32, device=dev)}

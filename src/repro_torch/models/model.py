@@ -1,8 +1,9 @@
 """Unified model: one forward for every architecture family.
 
 Mirrors ``repro.models.model``: ``init_params``, ``init_cache`` (the
-dense slot cache), ``supports_paged_kv``, ``init_paged_cache`` and
-``forward`` over a paged pool, a dense cache or no cache at all.
+dense slot cache), ``supports_paged_kv``, ``init_paged_cache``,
+``forward`` over a paged pool, a dense cache or no cache at all (with
+``remat`` for training), and the training ``loss_fn``.
 
 Parameters are a plain dict: ``embed`` (vocab, d_model), ``layers`` (a
 list with one dict per layer, ``n_layers`` long: the reference's
@@ -26,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -326,10 +328,19 @@ def _encoder_fwd(params, cfg: ModelConfig, frames):
     return norm_fwd(params["enc_norm"], x, cfg.norm)
 
 
+def _group_fwd(kinds, layers, x, cfg: ModelConfig, **kw):
+    """One group of layers without a cache: the unit ``remat`` recomputes."""
+    aux_total = 0.0
+    for kind, bp in zip(kinds, layers):
+        x, _, _, aux = _block_fwd(kind, bp, x, cfg, cache=None, **kw)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
             extra_embeds=None, frames=None, window_override=None,
             active=None, n_valid=None, last_only: bool = False,
-            block_tables=None, page_size: int = 0):
+            block_tables=None, page_size: int = 0, remat: bool = False):
     """Run the decoder stack.
 
     tokens: (B, T) int token ids, or None when ``extra_embeds`` carry
@@ -350,9 +361,17 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     block_tables: (B, pages_per_slot) int physical-page table for a paged
         cache; with ``page_size`` it routes attention through the paged
         kernels.
+    remat: recompute each group of ``pattern_len`` layers in the backward
+        pass instead of keeping its activations, as the reference's
+        ``jax.checkpoint(group_step)``; the tail blocks are kept.  Only
+        without a cache.
     Returns (logits f32, cache, aux_loss): the MoE load-balance terms
     summed over layers, 0 for a dense model.
     """
+    if remat and cache is not None:
+        raise ValueError("remat recomputes the layers in the backward pass "
+                         "and takes no cache: a recompute would write the "
+                         "cache twice")
     dev = params["embed"].device
     dt = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt) if tokens is not None else None
@@ -387,8 +406,20 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     plans = {}                    # cache-write plans, shared by the layers
     aux_total = 0.0
     G, PL = cfg.n_groups, cfg.pattern_len
-    for layer, (kind, bp) in enumerate(zip(_layer_kinds(cfg),
-                                           params["layers"])):
+    kinds = _layer_kinds(cfg)
+    first = 0                     # the first layer run outside a remat group
+    if remat:
+        first = G * PL
+        for g in range(G):
+            x, aux = checkpoint(
+                _group_fwd, kinds[g * PL:(g + 1) * PL],
+                params["layers"][g * PL:(g + 1) * PL], x, cfg,
+                pos_offset=pos_offset, window_override=window_override,
+                enc_out=enc_out, active=active, token_mask=token_mask,
+                valid_len=n_valid, use_reentrant=False)
+            aux_total = aux_total + aux
+    for layer in range(first, cfg.n_layers):
+        kind, bp = kinds[layer], params["layers"][layer]
         g, i = divmod(layer, PL)
         bc = None
         if cache is not None:
@@ -418,3 +449,27 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     logits = (x @ head.to(x.dtype)).float()
     return logits, cache, torch.as_tensor(aux_total, dtype=torch.float32,
                                           device=dev)
+
+
+# ==========================================================================
+# training loss
+# ==========================================================================
+def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
+            remat: bool = False):
+    """batch: {tokens, labels[, extra_embeds, frames]} as tensors on the
+    params' device; labels use -100 to mask (e.g. patch positions).  The
+    logits are cut to the labels' length; the mean NLL over valid labels
+    plus ``aux_weight * aux / n_layers``.  Returns (loss, {"nll", "aux"})."""
+    logits, _, aux = forward(
+        params, cfg, batch.get("tokens"),
+        extra_embeds=batch.get("extra_embeds"),
+        frames=batch.get("frames"), remat=remat)
+    labels = batch["labels"]
+    Tl = labels.shape[1]
+    logits = logits[:, -Tl:]
+    valid = labels >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    loss = nll.sum() / valid.sum().clamp(min=1)
+    return loss + aux_weight * aux / cfg.n_layers, {"nll": loss, "aux": aux}

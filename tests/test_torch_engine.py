@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # the test workers share the machine's cores
 import jax  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402

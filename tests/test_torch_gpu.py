@@ -324,3 +324,88 @@ def test_ring_write_past_the_window_on_card_matches_cpu(cuda_device):
         for a, b in zip(torch.utils._pytree.tree_leaves(got),
                         torch.utils._pytree.tree_leaves(exp)):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen3-moe-30b-a3b",
+                                  "mamba2-780m"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One smoke-size train step (remat on) on the card against the CPU in
+    f32 with TF32 off, from the same weights and batch: loss, lr and grad
+    norm to 1e-4 relative, the moments to 1e-4 of each leaf's largest
+    magnitude, the params to 3e-3 absolute (the reference's microbatch
+    bound: Adam's first step turns gradient differences near eps into
+    updates of up to lr)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models.model import init_params
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.tree import tree_items, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda_device, copy=True), cpu)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batch = next(token_batches(cfg, 4, 32, seed=2))
+    step = make_train_step(cfg, opt_cfg)
+    got = step(gpu, adamw_init(gpu, opt_cfg), batch)
+    exp = step(cpu, adamw_init(cpu, opt_cfg), batch)
+    for k in ("loss", "lr", "grad_norm"):
+        assert abs(float(got[2][k]) - float(exp[2][k])) <= \
+            1e-4 * abs(float(exp[2][k])), k
+    for which, rtol, atol in ((0, 0.0, 3e-3), (1, 1e-4, 0.0)):
+        e = dict(tree_items(exp[which]))
+        for key, a in tree_items(got[which]):
+            b = e[key].float()
+            bound = atol + rtol * float(b.abs().max())
+            assert float((a.cpu().float() - b).abs().max()) <= bound, key
+
+
+def test_moe_remat_recompute_routes_as_first_forward(cuda_device):
+    """A bf16 MoE train step on the card with remat: the recompute in the
+    backward pass routes every token as the first forward did (top-k
+    experts and capacity ranks equal), and its gradients equal the
+    no-remat step's to 1e-2 of each leaf's largest magnitude (bf16 grads;
+    a token routed elsewhere moves its grads by O(1))."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.models import layers
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.training.train import batch_to_device
+    from repro_torch.utils.tree import tree_items, tree_leaves, tree_unflatten
+    cfg = get_smoke_config("qwen3-moe-30b-a3b").with_(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    batch = batch_to_device(next(token_batches(cfg, 4, 64, seed=3)),
+                            cuda_device)
+    route = layers.moe_route
+    seen = []
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        seen.append((r["gate_idx"].clone(), r["pos_in_e"].clone()))
+        return r
+
+    grads = {}
+    layers.moe_route = recording
+    try:
+        for remat in (False, True):
+            seen.clear()
+            leaves = [p.detach().requires_grad_() for p in
+                      tree_leaves(params)]
+            loss, _ = loss_fn(tree_unflatten(params, leaves), cfg, batch,
+                              remat=remat)
+            grads[remat] = torch.autograd.grad(loss, leaves)
+            calls = list(seen)
+    finally:
+        layers.moe_route = route
+    # with remat each layer routes twice: in the forward, then in its
+    # recompute, which the backward pass reaches last layer first
+    n = cfg.n_layers
+    assert len(calls) == 2 * n
+    for (gi, pe), (gi2, pe2) in zip(calls[:n], calls[n:][::-1]):
+        assert torch.equal(gi, gi2) and torch.equal(pe, pe2)
+    for (key, _), a, b in zip(tree_items(params), grads[True], grads[False]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        bound = 1e-2 * float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= bound, key

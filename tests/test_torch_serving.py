@@ -14,6 +14,7 @@ from contextlib import redirect_stdout
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # the test workers share the machine's cores
 
 from repro.launch import serve as jserve  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
