@@ -9,7 +9,10 @@ tensors between engines via ``export_state`` / ``import_state``.
 
 This mirrors ``repro.engine.backend``; only the device plumbing
 differs.  All instances share ONE set of weight tensors and each owns
-its page pool, so two instances can time-share one card.  Because all
+its page pool, so two instances can time-share one card.  An instance
+of width n > 1 (``devices_per_instance``) is a sharded ``InstanceEngine``
+over n of ``utils.device.visible_devices()``; its shards' weights are
+views of the shared ones on their device.  Because all
 scheduling lives in the session/policies (verbatim copies of the
 reference), scheduler decisions are the same function of the same
 inputs as in the JAX package.
@@ -35,6 +38,7 @@ from repro_torch.engine.runner import (
 from repro_torch.engine.sampling import sample
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import supports_paged_kv
+from repro_torch.utils.device import DEVICE_COUNT_ENV, visible_devices
 
 #: One NVIDIA H100 SXM 80 GB: NVIDIA data-sheet peaks (dense bf16
 #: tensor-core FLOP/s, HBM3 bandwidth, NVLink bandwidth each way), not
@@ -229,15 +233,22 @@ class EngineBackend(Backend):
         return self._costs[n]
 
     def _instance_devices(self, iid: int):
-        """Device list of instance ``iid``: ``None`` (the engine runs on
-        the device of the shared weights).  Sharded instances are a later
-        slice of the port (ROADMAP.md queue A item 10)."""
+        """Deterministic round-robin sub-list of the visible devices (of
+        the weights' kind) for instance ``iid``; ``None`` for width 1 (the
+        engine runs on the weights' device).  Devices repeated by
+        ``$REPRO_TORCH_DEVICE_COUNT`` overlap, as the reference's virtual
+        CPU devices do: assignment only has to be reproducible."""
         n = self.devices_for(iid)
-        if n > 1:
-            raise NotImplementedError(
-                f"instance {iid} wants {n} devices; sharded instances are "
-                f"not ported yet (ROADMAP.md queue A item 10)")
-        return None
+        if n <= 1:
+            return None
+        all_devs = visible_devices(self.params["embed"].device.type)
+        if n > len(all_devs):
+            raise ValueError(
+                f"instance {iid} wants {n} devices but only "
+                f"{len(all_devs)} are visible; set {DEVICE_COUNT_ENV}={n} "
+                f"(the shards then time-share the devices) or run on a "
+                f"{n}-device host")
+        return [all_devs[(iid * n + j) % len(all_devs)] for j in range(n)]
 
     def _credit_saved(self, iid: int, nbytes: int) -> None:
         if nbytes <= 0:
@@ -264,7 +275,9 @@ class EngineBackend(Backend):
             self.engines[iid] = eng
 
     def retire(self, iid: int) -> None:
-        self.engines.pop(iid, None)
+        eng = self.engines.pop(iid, None)
+        if eng is not None:
+            eng.close()
 
     # ---------------- KV occupancy (memory-pressure surface) ----------
     def free_pages(self, iid: int) -> Optional[int]:

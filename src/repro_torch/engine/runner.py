@@ -1,4 +1,5 @@
-"""Per-instance execution engine on torch, one device.
+"""Per-instance execution engine on torch: one device, or a sharded
+instance over several.
 
 One ``InstanceEngine`` is the runtime of one *unified instance* in
 DynaServe terms: it owns a slot-pooled KV/state cache and executes the
@@ -11,11 +12,25 @@ and its dense slot cache.  The engine lives on the device of its
 parameters; its cache is updated in place.  Exported handoff pieces keep
 the reference's dict shape, with their arrays left as tensors on the
 engine's device (the handoff between two instances on one card never
-leaves it).  Sharded instances are a later slice of the port.
+leaves it).
+
+A sharded instance (``devices=[...]``, n of them) runs every step on n
+shard threads (``models.tp.ShardGroup``), each with its own params view,
+cache shard and device: tensor-parallel attention and MLP (heads / ffn
+sharded, summed at the output projections) and expert-parallel MoE (each
+shard owns a contiguous expert slice).  KV shards over kv_heads, each
+shard's pool allocated at ``KV / n`` heads; the shards share one page
+allocator, one set of block tables and one prefix cache.
+``export_state`` gathers the shards into the portable single-device piece
+format and ``import_state`` scatters it, so handoffs cross widths.
+Repeated devices (``["cpu", "cpu"]``, two shards of one card) behave as
+the reference's virtual devices do: the shards time-share the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,7 +48,11 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     forward, init_cache, init_paged_cache, supports_paged_kv,
 )
-from repro_torch.utils.device import torch_dtype
+from repro_torch.models.tp import ShardGroup
+from repro_torch.utils.device import as_device, torch_dtype
+from repro_torch.utils.sharding import (
+    shard_params, tp_cache_specs, tp_param_specs,
+)
 
 DEFAULT_MAX_CHUNK = 512
 
@@ -87,6 +106,13 @@ def _cols(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return as_indexable(t)[:, ids].view(t.dtype)
 
 
+def _on(device: torch.device):
+    """Make ``device`` the current CUDA device of the calling thread (the
+    kernels launch on its current stream); nothing for the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 class InstanceEngine:
     """One unified instance.
 
@@ -101,6 +127,15 @@ class InstanceEngine:
       required for ring-buffer / recurrent / enc-dec / frontend
       architectures, whose mixers are plain PyTorch ops.
     * ``"auto"`` (default) — paged when the architecture supports it.
+
+    ``devices`` (n > 1 of them, of one kind) makes the instance *sharded*
+    (see the module docstring); ``self.tp`` is n.  Each shard's weights
+    are views of ``params`` where the shard's device is the weights' own
+    (a column slice is a strided view that ``matmul`` takes without a
+    copy; row and expert slices are contiguous), so shards on the
+    weights' device add no weight memory; only another device gets a
+    copy.  Without ``devices`` (or with one) the engine runs on the
+    device of its parameters.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -118,20 +153,22 @@ class InstanceEngine:
         if kv_mode == "paged" and window_override is not None:
             raise ValueError("paged KV has no sliding-window support; "
                              "window_override requires kv_mode='dense'")
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "sharded (multi-device) instances are not ported yet: "
-                "ROADMAP.md queue A item 10")
         self.cfg = cfg
         self.params = params
-        self.device = params["embed"].device
         self.n_slots = n_slots
         self.max_len = max_len
         self.window_override = window_override
         self.max_chunk = max_chunk
         self.buckets = bucket_ladder(max_chunk)
         self.kv_precision = get_precision(kv_precision)
-        self.tp = 1
+        self.devices = ([as_device(d) for d in devices]
+                        if devices is not None and len(devices) > 1
+                        else None)
+        self.tp = len(self.devices) if self.devices else 1
+        if self.tp > 1:
+            self._validate_tp()
+        self.shard_devices = self.devices or [params["embed"].device]
+        self.device = self.shard_devices[0]
         self.paged = (kv_mode == "paged" or
                       (kv_mode == "auto" and supports_paged_kv(cfg)
                        and window_override is None))
@@ -139,13 +176,15 @@ class InstanceEngine:
             raise ValueError("quantized KV formats live on the page pool; "
                              f"kv_precision={self.kv_precision.name!r} "
                              f"requires a paged KV mode")
+        kv = cfg.n_kv_heads // self.tp
         if self.paged:
             self.page_size = page_size
             self.n_pages = (n_pages if n_pages is not None
                             else n_slots * pages_for(max_len, page_size))
-            self.cache = init_paged_cache(cfg, self.n_pages, page_size,
-                                          kv_precision=self.kv_precision,
-                                          device=self.device)
+            self.caches = [init_paged_cache(cfg, self.n_pages, page_size,
+                                            kv_precision=self.kv_precision,
+                                            device=d, n_kv_heads=kv)
+                           for d in self.shard_devices]
             self.allocator = BlockAllocator(self.n_pages, page_size,
                                             n_slots,
                                             precision=self.kv_precision)
@@ -157,9 +196,10 @@ class InstanceEngine:
             self.page_size = None
             self.n_pages = None
             self.allocator = None
-            self.cache = init_cache(cfg, n_slots, max_len,
-                                    window_override=window_override,
-                                    device=self.device)
+            self.caches = [init_cache(cfg, n_slots, max_len,
+                                      window_override=window_override,
+                                      device=d, n_kv_heads=kv)
+                           for d in self.shard_devices]
         # shared-prefix KV cache: trie over the page pool + per-slot
         # claims; the allocator evicts through it under pressure
         self.prefix: Optional[PrefixCache] = None
@@ -167,12 +207,76 @@ class InstanceEngine:
         if prefix_cache:
             self.prefix = PrefixCache(self.page_size)
             self.allocator.evictor = self._evict_cached_page
+        # sharded instance: each shard's params and its worker thread
+        self._cache_specs = tp_cache_specs(self.caches[0])
+        self.shard_params = [params]
+        self._group: Optional[ShardGroup] = None
+        if self.tp > 1:
+            self._shard_instance()
         self.free_slots = list(range(n_slots))
         self.slot_owner: Dict[int, str] = {}
         # counters for tests/benchmarks
         self.iterations = 0
         self.tokens_processed = 0
         self.prefix_hit_tokens = 0
+
+    @property
+    def cache(self) -> dict:
+        """The KV/state cache (shard 0's of a sharded instance, whose
+        shards' caches are ``caches``)."""
+        return self.caches[0]
+
+    # ---------------- tensor/expert parallelism ----------------
+    def _validate_tp(self) -> None:
+        """A sharded instance requires every shardable dim to divide the
+        width: a q-sharded / kv-replicated GQA split would break the
+        contiguous-group attention reshape, and partially-sharded MLPs
+        buy nothing.  Archs with recurrent / cross / frontend state keep
+        per-slot scatter paths that are not shard-aware."""
+        cfg, tp = self.cfg, self.tp
+        bad: List[str] = []
+        if not all(k in ("attn", "local_attn") for k in cfg.layer_pattern):
+            bad.append(f"layer pattern {cfg.layer_pattern!r} "
+                       f"(attention-only archs shard)")
+        if cfg.tail_kinds or cfg.cross_attention or \
+                cfg.arch_type in ("vlm", "audio"):
+            bad.append("tail/cross/frontend blocks do not shard")
+        if cfg.n_heads % tp:
+            bad.append(f"n_heads={cfg.n_heads} % {tp} != 0")
+        if cfg.n_kv_heads % tp:
+            bad.append(f"n_kv_heads={cfg.n_kv_heads} % {tp} != 0")
+        if cfg.moe_experts:
+            if cfg.moe_experts % tp:
+                bad.append(f"moe_experts={cfg.moe_experts} % {tp} != 0")
+        elif cfg.mlp != "none" and cfg.d_ff % tp:
+            bad.append(f"d_ff={cfg.d_ff} % {tp} != 0")
+        if self.kv_precision.quantized:
+            bad.append(f"kv_precision={self.kv_precision.name!r} "
+                       f"(quantized scale planes have no head dim to "
+                       f"shard)")
+        if len({d.type for d in self.devices}) > 1:
+            bad.append(f"devices {[str(d) for d in self.devices]} mix "
+                       f"kinds (one instance runs on one kind)")
+        if bad:
+            raise ValueError(
+                f"{cfg.name} cannot run as a {tp}-device sharded "
+                f"instance: " + "; ".join(bad))
+
+    def _shard_instance(self) -> None:
+        """Cut each shard's params out of the weights by the Megatron
+        specs (views on the weights' device) and start the shard
+        threads, stopped by ``close`` or when the engine is collected."""
+        specs = tp_param_specs(self.cfg, self.params)
+        self.shard_params = [shard_params(self.params, specs, self.tp, r, d)
+                             for r, d in enumerate(self.shard_devices)]
+        self._group = ShardGroup(self.tp, name=f"{self.cfg.name}-shard")
+        self._closer = weakref.finalize(self, self._group.close)
+
+    def close(self) -> None:
+        """Stop a sharded instance's shard threads (a one-device instance
+        has none); also done when the engine is collected."""
+        if self._group is not None:
+            self._closer()
 
     # ---------------- slot management ----------------
     def alloc(self, req_id: str) -> int:
@@ -192,14 +296,15 @@ class InstanceEngine:
         slot, so a request that reuses it starts its recurrence from that
         state and sees its ring entries (ROADMAP.md queue C); a page pool
         needs nothing, since a new request gets fresh pages."""
-        for c in self.cache["blocks"]:
-            for k, v in c.items():
-                v[:, slot] = -1 if k == "pos" else 0
-        for tc in self.cache.get("tail", ()):
-            for k, v in tc.items():
-                v[slot] = -1 if k == "pos" else 0
-        for v in self.cache.get("cross", {}).values():
-            v[:, slot] = 0
+        for cache in self.caches:
+            for c in cache["blocks"]:
+                for k, v in c.items():
+                    v[:, slot] = -1 if k == "pos" else 0
+            for tc in cache.get("tail", ()):
+                for k, v in tc.items():
+                    v[slot] = -1 if k == "pos" else 0
+            for v in cache.get("cross", {}).values():
+                v[:, slot] = 0
 
     def free(self, slot: int) -> None:
         self.slot_owner.pop(slot, None)
@@ -298,8 +403,8 @@ class InstanceEngine:
         for items with want_logits."""
         return self.collect_batch(self.dispatch_batch(items))
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
+    def _tensor(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.tensor(a, device=device or self.device)
 
     def dispatch_batch(self, items: Sequence[BatchItem]) \
             -> Optional[StepHandle]:
@@ -307,9 +412,10 @@ class InstanceEngine:
 
         All host-side work happens here — padding B to ``n_slots``, T to
         the bucket ladder and the block tables to the page ladder, block
-        table growth, the forward call — and the kernels run on while
-        the caller schedules the next batch and pumps KV streams.
-        Returns ``None`` for an empty batch."""
+        table growth, the forward call (on every shard of a sharded
+        instance; this returns once each shard has enqueued its step) —
+        and the kernels run on while the caller schedules the next batch
+        and pumps KV streams.  Returns ``None`` for an empty batch."""
         if not items:
             return None
         T = bucket_of(max(len(it.tokens) for it in items), self.buckets)
@@ -324,6 +430,8 @@ class InstanceEngine:
             pos_off[it.slot] = it.pos_offset
             n_valid[it.slot] = t
             active[it.slot] = True
+        inputs = {"tokens": tokens, "pos_offset": pos_off,
+                  "active": active, "n_valid": n_valid}
         kw = {"window_override": self.window_override}
         if self.paged:
             # grow block tables to cover every item's span before the
@@ -338,19 +446,29 @@ class InstanceEngine:
                 self._apply_forks(forks)
             n_pp = bucket_of(max(1, self.allocator.max_table_len),
                              self.page_buckets)
-            kw = {"block_tables": self._tensor(
-                self.allocator.table_array(n_pp)),
-                "page_size": self.page_size}
-        with torch.no_grad():
-            logits, self.cache, _ = forward(
-                self.params, self.cfg, self._tensor(tokens),
-                cache=self.cache, pos_offset=self._tensor(pos_off),
-                active=self._tensor(active), n_valid=self._tensor(n_valid),
-                last_only=True, **kw)
+            inputs["block_tables"] = self.allocator.table_array(n_pp)
+            kw = {"page_size": self.page_size}
+        on_dev = {d: {k: self._tensor(a, d) for k, a in inputs.items()}
+                  for d in dict.fromkeys(self.shard_devices)}
+
+        def step(rank):
+            # on the caller's thread for one device, else on shard rank's
+            # thread, where autograd mode and the current device are its own
+            dev = self.shard_devices[rank]
+            t = on_dev[dev]
+            with torch.no_grad(), _on(dev):
+                logits, _, _ = forward(
+                    self.shard_params[rank], self.cfg, t["tokens"],
+                    cache=self.caches[rank], pos_offset=t["pos_offset"],
+                    active=t["active"], n_valid=t["n_valid"],
+                    block_tables=t.get("block_tables"), last_only=True, **kw)
+            return logits
+
+        logits = step(0) if self._group is None else self._group.run(step)[0]
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))
         self.iterations += 1
         self.tokens_processed += int(sum(len(it.tokens) for it in items))
         return StepHandle(items=items, logits=logits[:, 0], event=event)
@@ -370,12 +488,14 @@ class InstanceEngine:
         in place, one indexed copy per pool tensor, so the forking slot
         may write its private copy without touching the shared
         original."""
-        old_ids = self._tensor(np.asarray([o for o, _ in forks], np.int64))
-        new_ids = self._tensor(np.asarray([n for _, n in forks], np.int64))
-        for blk in self.cache["blocks"]:
-            for t in blk.values():       # k/v pages + dequant scales
-                raw = as_indexable(t)
-                raw[:, new_ids] = raw[:, old_ids]
+        old = np.asarray([o for o, _ in forks], np.int64)
+        new = np.asarray([n for _, n in forks], np.int64)
+        for cache, dev in zip(self.caches, self.shard_devices):
+            old_ids, new_ids = self._tensor(old, dev), self._tensor(new, dev)
+            for blk in cache["blocks"]:
+                for t in blk.values():   # k/v pages + dequant scales
+                    raw = as_indexable(t)
+                    raw[:, new_ids] = raw[:, old_ids]
 
     def run_frontend(self, slot: int, *, extra_embeds=None, frames=None,
                      tokens: Optional[np.ndarray] = None, pos_offset: int = 0):
@@ -416,7 +536,7 @@ class InstanceEngine:
         active[slot] = True
         total = n_extra + tvalid
         with torch.no_grad():
-            logits, self.cache, _ = forward(
+            logits, _, _ = forward(
                 self.params, self.cfg, tok, cache=self.cache,
                 pos_offset=torch.full((B,), pos_offset, dtype=torch.long,
                                       device=dev),
@@ -453,10 +573,11 @@ class InstanceEngine:
                  [(s, min(s + chunk, upto)) for s in range(0, upto, chunk)])
         for lo, hi in spans:
             piece = {"span": (lo, hi), "blocks": []}
-            for c in self.cache["blocks"]:
+            for i, c in enumerate(self.cache["blocks"]):
                 if "k" in c and c["k"].shape[2] >= upto:
                     piece["blocks"].append(
-                        {k: c[k][:, slot, lo:hi].clone()
+                        {k: self._gather(i, k, (slice(None), slot,
+                                                slice(lo, hi)))
                          for k in ("k", "v", "pos")})
                 else:
                     # ring buffer (sliding window): bounded — ship whole
@@ -465,9 +586,9 @@ class InstanceEngine:
             pieces.append(piece)
         final = pieces[-1]
         final["rings"] = [
-            {k: v[:, slot].clone() for k, v in c.items()}
+            {k: self._gather(i, k, (slice(None), slot)) for k in c}
             if "k" in c and c["k"].shape[2] < upto else None
-            for c in self.cache["blocks"]]
+            for i, c in enumerate(self.cache["blocks"])]
         # recurrent / tail / cross state rides with the final piece
         final["recurrent"] = [
             {k: v[:, slot].clone() for k, v in c.items()}
@@ -513,22 +634,53 @@ class InstanceEngine:
         per_piece = pages_for(chunk, page) if chunk else max(1, n_need)
         for p0 in range(start // page, max(1, n_need), per_piece):
             p1 = min(p0 + per_piece, n_need)
-            ids = self._tensor(np.asarray(table[p0:p1], np.int64))
+            ids = {d: self._tensor(np.asarray(table[p0:p1], np.int64), d)
+                   for d in dict.fromkeys(self.shard_devices)}
             piece = {"span": (p0 * page, min(p1 * page, upto)),
                      "page_size": page, "pages": [],
                      "precision": self.kv_precision.name}
-            for c in self.cache["blocks"]:
-                pc = {"k": _cols(c["k_pages"], ids),
-                      "v": _cols(c["v_pages"], ids)}
+            for i, c in enumerate(self.cache["blocks"]):
+                shards = [cache["blocks"][i] for cache in self.caches]
+                pc = {k: self._join([_cols(b[name], ids[b[name].device])
+                                     for b in shards])
+                      for k, name in (("k", "k_pages"), ("v", "v_pages"))}
                 if "k_scales" in c:
                     # quantized pool: the per-token-row dequant scales
                     # ride with their code pages
-                    pc["k_scales"] = c["k_scales"][:, ids]
-                    pc["v_scales"] = c["v_scales"][:, ids]
+                    pc["k_scales"] = c["k_scales"][:, ids[self.device]]
+                    pc["v_scales"] = c["v_scales"][:, ids[self.device]]
                 piece["pages"].append(pc)
             yield piece
             if p1 >= n_need:
                 break
+
+    def _join(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The shards' slices of one K/V leaf joined over the KV heads
+        (dim -2) in shard order, on this engine's device; a single part
+        as it is."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts], dim=-2)
+
+    def _gather(self, i: int, key: str, index) -> torch.Tensor:
+        """Block ``i``'s ``key`` leaf at ``index`` as one fresh tensor:
+        joined over the shards for a K/V leaf, shard 0's otherwise."""
+        parts = [c["blocks"][i][key][index] for c in self.caches]
+        if len(parts) == 1 or self._cache_specs["blocks"][i][key] is None:
+            return parts[0].clone()
+        return self._join(parts)
+
+    def _scatter(self, i: int, key: str, src) -> List[torch.Tensor]:
+        """A whole-width ``src`` (tensor or numpy) for block ``i``'s
+        ``key`` leaf as each shard's part on the shard's device: split
+        over the KV heads for a K/V leaf, whole otherwise."""
+        src = to_torch(src, self.device)
+        if self.tp == 1:
+            return [src]
+        parts = ([src] * self.tp
+                 if self._cache_specs["blocks"][i][key] is None
+                 else src.chunk(self.tp, dim=-2))
+        return [p.to(d) for p, d in zip(parts, self.shard_devices)]
 
     def _to_pool_format(self, codes, scales):
         """Convert one exported page stack (codes (G,n,page,KV,hd) plus
@@ -560,18 +712,23 @@ class InstanceEngine:
         def put(dst, src):
             dst.copy_(to_torch(src, self.device))
 
+        def put_block(i, key, index, src):
+            for c, part in zip(self.caches, self._scatter(i, key, src)):
+                c["blocks"][i][key][index].copy_(part)
+
         for piece in pieces:
             lo, hi = piece["span"]
-            for c, bc in zip(cache["blocks"], piece["blocks"]):
+            for i, bc in enumerate(piece["blocks"]):
                 if bc is not None:
                     for k in ("k", "v", "pos"):
-                        put(c[k][:, slot, lo:hi], bc[k])
+                        put_block(i, k, (slice(None), slot, slice(lo, hi)),
+                                  bc[k])
             # ring buffers and recurrent state: whole slot, final piece
             for part in ("rings", "recurrent"):
-                for c, rc in zip(cache["blocks"], piece.get(part) or ()):
+                for i, rc in enumerate(piece.get(part) or ()):
                     if rc is not None:
                         for k, v in rc.items():
-                            put(c[k][:, slot], v)
+                            put_block(i, k, (slice(None), slot), v)
             for tc, new in zip(cache.get("tail", ()), piece.get("tail") or ()):
                 for k, v in new.items():
                     put(tc[k][slot], v)
@@ -616,11 +773,16 @@ class InstanceEngine:
                     parts[i][key].append(to_torch(a, self.device))
         if not all_ids:
             return
-        ids = self._tensor(np.concatenate(all_ids))
-        for blk, part in zip(self.cache["blocks"], parts):
+        ids = np.concatenate(all_ids)
+        ids = {d: self._tensor(ids, d)
+               for d in dict.fromkeys(self.shard_devices)}
+        for i, part in enumerate(parts):
             for key in keys:
                 src = torch.cat([as_indexable(a) for a in part[key]], dim=1)
-                as_indexable(blk[key])[:, ids] = src
+                for cache, shard in zip(self.caches,
+                                        self._scatter(i, key, src)):
+                    dst = cache["blocks"][i][key]
+                    as_indexable(dst)[:, ids[dst.device]] = shard
 
     def _kv_itemsize(self) -> int:
         """Itemsize of the dtype the KV cache actually stores — NOT

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -30,6 +31,7 @@ launches = 0
 #: the same launches by the body the kernel took, as it reports them
 BODIES = ("fma", "mma_sync", "wgmma")
 body_launches = dict.fromkeys(BODIES, 0)
+_counting = threading.Lock()
 
 _SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
@@ -106,6 +108,7 @@ def chunked_prefill_attention(q, k, v, offsets, k_scales=None,
                     ctypes.byref(body),
                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "chunked_prefill_attention")
-    launches += 1
-    body_launches[BODIES[body.value]] += 1
+    with _counting:             # the shards of a sharded step launch at once
+        launches += 1
+        body_launches[BODIES[body.value]] += 1
     return out

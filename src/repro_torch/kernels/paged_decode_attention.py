@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -24,6 +25,7 @@ from repro_torch.kernels import _build
 #: kernel calls made by this wrapper, one per call (split and merge
 #: passes together); tests and chip_smoke.py reset it
 launches = 0
+_counting = threading.Lock()
 
 _SIG = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                       ctypes.c_void_p]
@@ -95,5 +97,6 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
         B, H, KV, hd, page, n_pp, _build.dtype_code(q), _build.dtype_code(kp),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "paged_decode_attention")
-    launches += 1
+    with _counting:             # the shards of a sharded step launch at once
+        launches += 1
     return out

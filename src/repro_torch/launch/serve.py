@@ -21,6 +21,7 @@ per-class SLO-attaining tokens per second measured at the API.
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -61,6 +62,19 @@ def parse_devices(text) -> Union[int, List[int]]:
 
 def _max_width(dpi: Union[int, List[int]]) -> int:
     return max(dpi) if isinstance(dpi, list) else dpi
+
+
+def _ensure_host_devices(n: int, device: Optional[str]) -> None:
+    """Sharded engine instances need >= n devices; the CPU is one, so on
+    ``--device cpu`` the launcher repeats it n times (the
+    ``REPRO_TORCH_DEVICE_COUNT`` setting), as the reference forces the
+    host platform's device count on a CPU host.  A card's devices are
+    repeated only when the caller sets it."""
+    from repro_torch.utils.device import DEVICE_COUNT_ENV
+    if n <= 1 or device != "cpu":
+        return
+    if int(os.environ.get(DEVICE_COUNT_ENV) or 0) < n:
+        os.environ[DEVICE_COUNT_ENV] = str(n)
 
 
 def mini_trace(n: int, qps: float, seed: int,
@@ -149,11 +163,7 @@ def _finish_recorder(rec, args) -> None:
 
 def serve_engine(args) -> SessionMetrics:
     dpi = parse_devices(args.devices_per_instance)
-    if _max_width(dpi) > 1:
-        raise NotImplementedError(
-            "--devices-per-instance above 1 needs sharded instances, which "
-            "the torch engine does not have yet (ROADMAP.md queue A item "
-            "10); the sim backend prices such widths")
+    _ensure_host_devices(args.instances * _max_width(dpi), args.device)
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.engine.backend import EngineBackend
@@ -254,6 +264,10 @@ def serve_sim(args) -> SessionMetrics:
 
 def serve_http(args) -> None:
     """Long-lived front door: OpenAI-compatible HTTP + /metrics."""
+    if (args.backend or "sim") == "engine":
+        _ensure_host_devices(
+            args.instances * _max_width(parse_devices(
+                args.devices_per_instance)), args.device)
     from repro_torch.serving.http import ServerConfig, ServingServer
 
     cfg = ServerConfig(
@@ -340,12 +354,13 @@ def main(argv=None):
                          "SLO-mixed pools")
     ap.add_argument("--devices-per-instance", default="1",
                     help="shard width of each instance: a uniform int "
-                         "(2 = every instance is a TP=2 shard_map over "
-                         "2 devices) or a comma list like 1,2,2 "
-                         "(instance iid takes widths[iid %% len]).  The "
-                         "torch engine runs width 1 only (sharded "
-                         "instances are ROADMAP.md queue A item 10); the "
-                         "sim prices any width in its cost model")
+                         "(2 = every instance is a TP=2 instance over "
+                         "2 devices, one shard thread each) or a comma "
+                         "list like 1,2,2 (instance iid takes "
+                         "widths[iid %% len]).  The engine needs that "
+                         "many devices of --device's kind; "
+                         "REPRO_TORCH_DEVICE_COUNT=n repeats them so "
+                         "shards time-share one")
     ap.add_argument("--device", default="cuda",
                     help="engine-backend device: cuda (the card) or cpu "
                          "(the plain PyTorch path)")

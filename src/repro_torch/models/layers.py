@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.tp import all_reduce, tp_axis, tp_rank
 
 
 # --------------------------------------------------------------------------
@@ -91,6 +92,17 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _mlp_out(h, p, cfg: ModelConfig):
+    """Down-projection; in a sharded step a *sharded* ffn dim yields
+    partial sums that are summed over the shards so the residual add
+    sees the replicated value.  A dim the width did not divide is
+    replicated (``p["wo"]`` is full-width) and must not be summed."""
+    y = h @ p["wo"]
+    if tp_axis() is not None and p["wo"].shape[0] != cfg.d_ff:
+        y = all_reduce(y)
+    return y
+
+
 def mlp_fwd(p, x, cfg: ModelConfig):
     """Returns (y, aux_loss).  aux_loss is the MoE load-balance term (0
     for dense MLPs)."""
@@ -106,7 +118,7 @@ def mlp_fwd(p, x, cfg: ModelConfig):
         h = _gelu(x @ p["wi"])
     else:
         raise ValueError(cfg.mlp)
-    return h @ p["wo"], 0.0
+    return _mlp_out(h, p, cfg), 0.0
 
 
 # --------------------------------------------------------------------------
@@ -156,38 +168,56 @@ def moe_route(p, xf, cfg: ModelConfig, capacity_factor: float):
 
 def moe_fwd(p, x, cfg: ModelConfig, capacity_factor: Optional[float] = None):
     """x: (B, T, dm) -> (y, aux_loss), as ``repro.models.layers.moe_fwd``
-    computes it on one device: every expert runs its whole capacity
-    buffer (E, cap, dm), so a step reads every expert's weights."""
+    computes it: every expert runs its whole capacity buffer (E, cap, dm),
+    so a step reads every expert's weights.
+
+    Expert parallelism: in a sharded step each shard owns the contiguous
+    expert slice ``[rank * E_local, (rank + 1) * E_local)``.  The router,
+    top-k and capacity ranking are computed from replicated activations,
+    so every shard agrees on the global dispatch; the shard keeps only its
+    own experts' slots (dropped and foreign slots add zero at
+    ``E_local - 1``) and the combine is summed over the shards, so each
+    token's K contributions count exactly once."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     B, T, dm = x.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
-    if p["wi"].shape[0] != E:
-        raise NotImplementedError(
-            "expert-parallel MoE (a slice of the experts on each device) "
-            "is not ported yet: ROADMAP.md queue A item 10")
+    E_local = p["wi"].shape[0]
+    group = tp_axis() if E_local != E else None
+    if E_local != E and group is None:
+        raise ValueError(f"an expert slice ({E_local} of {E} experts) runs "
+                         f"only as a shard of a sharded step "
+                         f"(models.tp.tp_context)")
     S = B * T
     xf = x.reshape(S, dm)
     r = moe_route(p, xf, cfg, capacity_factor)
-    keep, cap = r["keep"], r["cap"]
+    keep, cap, gate_w = r["keep"], r["cap"], r["gate_w"]
+    e_off = 0
+    if group is not None:
+        e_off = tp_rank() * E_local
+        local = (r["gate_idx"] >= e_off) & (r["gate_idx"] < e_off + E_local)
+        keep = keep & local
+        gate_w = gate_w * local.to(gate_w.dtype)
 
     # dispatch: kept slots land at (expert, rank); dropped slots add zero
-    # at (E - 1, clipped rank), as the reference's scatter-add does.  A
-    # kept slot has exactly one writer, so the accumulation order of the
+    # at (E_local - 1, clipped rank), as the reference's scatter-add does.
+    # A kept slot has exactly one writer, so the accumulation order of the
     # atomics cannot change a bit.
-    e_idx = torch.where(keep, r["gate_idx"], E - 1)
+    e_idx = torch.where(keep, r["gate_idx"] - e_off, E_local - 1)
     c_idx = r["pos_in_e"].clamp(0, cap - 1)
-    buf = torch.zeros((E, cap, dm), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E_local, cap, dm), dtype=x.dtype, device=x.device)
     buf.index_put_((e_idx, c_idx),
                    xf[:, None, :] * keep[..., None].to(x.dtype),
                    accumulate=True)
 
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
-    out_e = torch.bmm(h, p["wo"])                            # (E, cap, dm)
+    out_e = torch.bmm(h, p["wo"])                        # (E_local, cap, dm)
 
     # combine: each token's K expert outputs, weighted, summed over K
     gathered = out_e[e_idx, c_idx]                           # (S, K, dm)
-    yf = (gathered * r["gate_w"][..., None].to(x.dtype)).sum(dim=1)
+    yf = (gathered * gate_w[..., None].to(x.dtype)).sum(dim=1)
+    if group is not None:
+        yf = all_reduce(yf)
     aux = moe_load_balance_loss(r["probs"], r["gate_idx"], E, K)
     return yf.reshape(B, T, dm), aux
 

@@ -40,6 +40,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     _gelu, apply_rope, rms_head_norm, rope_tables,
 )
+from repro_torch.models.tp import all_reduce, tp_axis
 
 NEG_INF = -1e30
 
@@ -78,9 +79,14 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv):
 
 
 def _attn_out(y, p, cfg: ModelConfig):
-    """Output projection (no tensor parallelism in the port yet, so no
-    cross-shard sum)."""
-    return y @ p["wo"]
+    """Output projection; in a sharded step a head-sharded ``wo`` (first
+    dim < global H*hd) produces partial sums that are summed over the
+    shards so the residual add sees replicated values.  A replicated
+    ``wo`` (heads didn't divide the width) must not be summed."""
+    out = y @ p["wo"]
+    if tp_axis() is not None and p["wo"].shape[0] != cfg.n_heads * cfg.hd:
+        out = all_reduce(out)
+    return out
 
 
 def _gqa_scores_to_out(cfg: ModelConfig, q, k, v, mask):

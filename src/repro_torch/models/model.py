@@ -184,16 +184,19 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # dense cache construction
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               window_override: Optional[int] = None, device=None):
+               window_override: Optional[int] = None, device=None,
+               n_kv_heads: Optional[int] = None):
     """Per-pattern-position caches stacked over the G groups, as the
     reference builds them: attention slots (G, batch, S_buf, KV, hd) with
     ``pos`` -1 (empty), where a local-attention layer (or every layer,
     under ``window_override``) keeps a ring of ``min(max_len, window)``
     slots; SSD state (f32) and conv tail; RG-LRU state (f32) and conv
     tail; tail-block caches without the group axis; cross K/V for every
-    decoder layer."""
+    decoder layer.  ``n_kv_heads`` (default ``cfg.n_kv_heads``) is the KV
+    heads a cache holds: a shard of a sharded instance holds its slice."""
     dev = resolve_device(device)
     G = cfg.n_groups
+    KV = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
     dt = torch_dtype(cfg.dtype)
 
     def zeros(shape, dtype=dt):
@@ -208,8 +211,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if kind_eff in ("attn", "local_attn"):
             S_buf = min(max_len, eff_window) \
                 if (kind_eff == "local_attn" and eff_window) else max_len
-            c = {"k": zeros((G, batch, S_buf, cfg.n_kv_heads, cfg.hd)),
-                 "v": zeros((G, batch, S_buf, cfg.n_kv_heads, cfg.hd)),
+            c = {"k": zeros((G, batch, S_buf, KV, cfg.hd)),
+                 "v": zeros((G, batch, S_buf, KV, cfg.hd)),
                  "pos": torch.full((G, batch, S_buf), -1, dtype=torch.int32,
                                    device=dev)}
         elif kind == "ssd":
@@ -230,13 +233,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                     layer_pattern=cfg.tail_kinds,
                                     cross_attention=False),
                           batch, max_len, window_override=window_override,
-                          device=dev)
+                          device=dev, n_kv_heads=KV)
         # strip the G=1 leading dim for tail caches
         cache["tail"] = tuple({k: v[0] for k, v in c.items()}
                               for c in tail["blocks"])
     if cfg.cross_attention:
-        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads,
-                 cfg.hd)
+        shape = (cfg.n_layers, batch, cfg.encoder_len, KV, cfg.hd)
         cache["cross"] = {"xk": zeros(shape), "xv": zeros(shape)}
     return cache
 
@@ -258,13 +260,17 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
-                     kv_precision=None, device=None):
+                     kv_precision=None, device=None,
+                     n_kv_heads: Optional[int] = None):
     """Physical page pools, one dict per pattern position with leaves
     stacked over the G groups: ``k_pages``/``v_pages`` of shape
     (G, n_pages, page_size, KV, hd), plus (G, n_pages, page_size) f32
     ``k_scales``/``v_scales`` for a quantized (fp8/int8) pool.  Slots map
     logical positions to (page, offset) through the engine's block
-    tables."""
+    tables.  ``n_kv_heads`` (default ``cfg.n_kv_heads``) is the KV heads
+    the pool holds: each shard of a sharded instance allocates its own
+    pool at its slice of the heads, contiguous, never a view of a whole
+    pool (the kernel wrappers would copy a strided view on every call)."""
     from repro_torch.core.precision import get_precision
     from repro_torch.kernels.ops import kv_storage_dtype
 
@@ -277,7 +283,9 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     dt = kv_storage_dtype(prec, default=torch_dtype(cfg.dtype))
     caches = []
     for _ in cfg.layer_pattern:
-        shape = (G, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+        shape = (G, n_pages, page_size,
+                 cfg.n_kv_heads if n_kv_heads is None else n_kv_heads,
+                 cfg.hd)
         c = {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
              "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
         if prec.quantized:

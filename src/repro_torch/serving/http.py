@@ -148,9 +148,9 @@ class ServerConfig:
     pages_per_instance: int = 4096
     # shard width per instance: uniform int, or a per-instance list
     # (iid takes widths[iid % len]); the sim prices the widths in its
-    # cost model, and the engine backend raises above 1 (sharded
-    # instances are ROADMAP.md queue A item 10).  The per-instance
-    # "devices" gauge lands on /metrics either way.
+    # cost model, and the engine backend runs sharded instances over
+    # that many devices.  The per-instance "devices" gauge lands on
+    # /metrics either way.
     devices_per_instance: Union[int, List[int]] = 1
     default_slo: str = "standard"    # class for requests without "slo"
     max_tokens_cap: int = 512        # hard per-request output cap

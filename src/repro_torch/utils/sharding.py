@@ -1,14 +1,21 @@
-"""Parallelism bookkeeping the cost model reads.
+"""Parallelism bookkeeping the cost model reads, and the tensor-parallel
+layout of a sharded instance.
 
-Only the mesh-free part of ``repro.utils.sharding`` is carried over: the
-rest builds ``jax.sharding`` specs, and tensor parallelism is a later
-slice of the port (ROADMAP.md queue A item 10).  The three definitions
-below are verbatim copies of the reference."""
+``_warn_once``, ``AchievedParallelism`` and ``achieved_parallelism`` are
+verbatim copies of ``repro.utils.sharding``.  ``tp_param_specs`` and
+``tp_cache_specs`` follow the reference's Megatron rules, but where it
+builds ``PartitionSpec`` trees for a device mesh they give each leaf the
+dim its shards split, counted from the end, or ``None`` (replicated);
+``shard_params`` cuts one shard out of a tree by such specs.  The mesh
+helpers (``best_divisible_axes``, ``spec_for``, ``named_sharding``,
+``replicated``) belong to the dryrun, which is not ported yet."""
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Set
+from typing import Optional, Set
+
+from repro_torch.utils.device import as_device
 
 _warned: Set[tuple] = set()
 
@@ -56,3 +63,74 @@ def achieved_parallelism(cfg, n: int) -> "AchievedParallelism":
         ffn=ach(getattr(cfg, "d_ff", 0) or 0, "d_ff") if not moe else 1,
         experts=ach(cfg.moe_experts, "moe_experts") if moe else 1,
     )
+
+
+def _spec_tree(tree, leaf_dim, names=()):
+    """``tree``'s structure with ``leaf_dim(names)`` at every leaf, where
+    ``names`` are the dict keys on the leaf's path."""
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v, leaf_dim, names + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_spec_tree(v, leaf_dim, names) for v in tree)
+    return leaf_dim(names)
+
+
+def tp_param_specs(cfg, params):
+    """Megatron-style split dims for ``init_params`` output: attention q/o
+    sharded over heads, k/v over kv_heads, dense MLP over the ffn dim, MoE
+    weights over the expert dim; router, norms, embed and lm_head
+    replicated (``None``).  Dims count from the end of each leaf's shape,
+    as the reference's spec positions do."""
+    moe = bool(getattr(cfg, "moe_experts", 0))
+
+    def dim(names) -> Optional[int]:
+        leaf = names[-1] if names else ""
+        if "mixer" in names or "cross" in names:
+            if leaf in ("wq", "wk", "wv", "bq", "bk", "bv"):
+                return -1
+            if leaf == "wo":
+                return -2
+            return None                     # q_norm / k_norm / inner norms
+        if "mlp" in names:
+            if moe:
+                return -3 if leaf in ("wi", "wg", "wo") else None
+            if leaf in ("wi", "wg"):
+                return -1
+            if leaf == "wo":
+                return -2
+        return None                         # embed, norms, lm_head, ...
+
+    return _spec_tree(params, dim)
+
+
+def tp_cache_specs(cache):
+    """Split dims for a KV cache (dense or paged): the KV-head dim (-2 of
+    ``(..., KV, hd)``) of ``k``, ``v``, ``k_pages`` and ``v_pages``;
+    position planes and anything else are replicated (``None``)."""
+    return _spec_tree(cache, lambda names: -2 if names and names[-1] in
+                      ("k", "v", "k_pages", "v_pages") else None)
+
+
+def shard_params(params, specs, n: int, rank: int, device):
+    """Shard ``rank`` of ``n`` of a tree: each leaf with a split dim that
+    ``n`` divides narrowed to its ``rank``-th contiguous slice, every
+    other leaf whole.  On the leaf's own device the result is a view (a
+    column slice is strided, which ``matmul`` takes without a copy); only
+    another device gets a copy."""
+    device = as_device(device)
+
+    def cut(t, dim):
+        if dim is not None and t.shape[dim] % n == 0:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, rank * size, size)
+        return t if t.device == device else t.to(device)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, s) for v, s in zip(tree, spec))
+        return cut(tree, spec)
+
+    return walk(params, specs)

@@ -388,16 +388,25 @@ def test_attach_and_drain_instances_mid_flight(f32):
 
 
 def test_unported_modes_raise_naming_the_roadmap(f32):
-    """Sharded (multi-device) instances still raise, naming ROADMAP.md
-    queue A item 10.  The dense slot cache and the stub frontend, refused
+    """No mode raises NotImplementedError any more.  Sharded
+    (multi-device) instances, refused before, now run: two shards on the
+    CPU greedy-decode the JAX engine's tokens (``tests/test_torch_sharded.py``
+    holds them in full), and devices of two kinds in one instance raise
+    ``ValueError``.  The dense slot cache and the stub frontend, refused
     before, now run: ``kv_mode="dense"`` and ``window_override`` (a ring
     of 8 slots) on the paper's model greedy-decode the JAX dense engine's
     tokens, and the reference's ``ValueError``s stand (``run_frontend`` on
     a paged engine, a quantized pool or a prefix cache on a dense one)."""
     jcfg, jp, cfg, tp = f32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
-        InstanceEngine(cfg, tp, devices=["cuda:0", "cuda:1"])
     prompt = _prompt(9, 20, cfg.vocab_size)
+    eng = InstanceEngine(cfg, tp, n_slots=2, max_len=64,
+                         devices=["cpu", "cpu"])
+    ref = JEngine(jcfg, jp, n_slots=2, max_len=64)
+    assert eng.tp == 2 and eng.paged
+    assert _gen(eng, eng.alloc("r"), prompt, 5) == \
+        _gen(ref, ref.alloc("r"), prompt, 5, item=JItem)
+    with pytest.raises(ValueError, match="mix kinds"):
+        InstanceEngine(cfg, tp, devices=["cpu", "cuda:0"])
     for kw in ({"kv_mode": "dense"}, {"window_override": 8}):
         eng = InstanceEngine(cfg, tp, n_slots=2, max_len=64, **kw)
         ref = JEngine(jcfg, jp, n_slots=2, max_len=64, **kw)

@@ -409,3 +409,91 @@ def test_moe_remat_recompute_routes_as_first_forward(cuda_device):
         assert a.dtype == b.dtype == torch.bfloat16
         bound = 1e-2 * float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= bound, key
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "qwen3-moe-30b-a3b"])
+def test_tp2_engine_on_card_matches_cpu(cuda_device, arch):
+    """A TP=2 instance (EP=2 on the MoE config) whose two shards
+    time-share the card greedy-decodes, in f32 through both kernels at
+    the shards' head counts, the tokens of the one-device engine on the
+    CPU from the same weights, with first logits within 1e-4 of their
+    scale; each shard launches the kernels once a layer a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine import BatchItem, InstanceEngine
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.models.model import init_params
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 40).astype(np.int32)
+    start = (pda.launches, cpa.launches)
+    runs = []
+    for params, devices in ((cpu, None),
+                            (_to(cpu, cuda_device), [cuda_device] * 2)):
+        eng = InstanceEngine(cfg, params, n_slots=4, max_len=96,
+                             devices=devices)
+        slot = eng.alloc("r")
+        out = eng.run_batch([BatchItem(slot, prompt, 0, want_logits=True)])
+        first = out[slot]
+        toks, pos = [int(first.argmax())], len(prompt)
+        for _ in range(7):
+            out = eng.run_batch([BatchItem(
+                slot, np.array([toks[-1]], np.int32), pos, want_logits=True)])
+            toks.append(int(out[slot].argmax()))
+            pos += 1
+        runs.append((toks, first))
+    (want, ref_logits), (got, logits) = runs
+    assert got == want
+    assert np.abs(logits - ref_logits).max() <= \
+        1e-4 * np.abs(ref_logits).max()
+    assert (pda.launches - start[0], cpa.launches - start[1]) == \
+        (2 * 7 * cfg.n_layers, 2 * cfg.n_layers)
+
+
+def test_ep2_moe_routing_on_card_equals_ep1(cuda_device):
+    """The expert-parallel ``moe_fwd`` on two shards of the card makes,
+    on every shard, the routing decisions of the unsharded one on the
+    card (ties and drops included), and sums to its output."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers
+    from repro_torch.models.tp import ShardGroup
+    from repro_torch.utils.sharding import shard_params
+    cfg = get_smoke_config("qwen3-moe-30b-a3b").with_(moe_experts=16,
+                                                      moe_top_k=4)
+    g = torch.Generator().manual_seed(1)
+    E, dm, ff = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    p = {"router": 0.3 * torch.randn(dm, E, generator=g),
+         "wi": torch.randn(E, dm, ff, generator=g) / dm ** 0.5,
+         "wg": torch.randn(E, dm, ff, generator=g) / dm ** 0.5,
+         "wo": torch.randn(E, ff, dm, generator=g) / ff ** 0.5}
+    p["router"][:, 3] = p["router"][:, 1]
+    p = {k: v.to(cuda_device) for k, v in p.items()}
+    x = torch.randn(4, 64, dm, generator=g).to(cuda_device)
+    specs = {"router": None, "wi": -3, "wg": -3, "wo": -3}
+    route = layers.moe_route
+    for cf in (cfg.moe_capacity_factor, 0.5):
+        seen = []
+
+        def watched(*a, **kw):
+            r = route(*a, **kw)
+            seen.append(r)
+            return r
+
+        y, _ = layers.moe_fwd(p, x, cfg, capacity_factor=cf)
+        group = ShardGroup(2)
+        layers.moe_route = watched
+        try:
+            outs = group.run(lambda r: layers.moe_fwd(
+                shard_params(p, specs, 2, r, cuda_device), x, cfg,
+                capacity_factor=cf))
+        finally:
+            layers.moe_route = route
+            group.close()
+        exp = route(p, x.reshape(-1, dm), cfg, cf)
+        assert len(seen) == 2
+        for r in seen:
+            for key in ("gate_idx", "pos_in_e", "keep"):
+                assert torch.equal(r[key], exp[key]), (cf, key)
+        for yc, _ in outs:
+            torch.testing.assert_close(yc, y, rtol=1e-4, atol=1e-4)

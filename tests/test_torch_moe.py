@@ -272,7 +272,7 @@ def test_moe_refuses_an_expert_slice():
     p, x = _moe_inputs(cfg, seed=0)
     half = {k: torch.from_numpy(v[: cfg.moe_experts // 2] if k != "router"
                                 else v) for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="expert slice .* sharded step"):
         tlayers.moe_fwd(half, torch.from_numpy(x), cfg)
 
 

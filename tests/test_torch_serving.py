@@ -7,6 +7,7 @@ the same lines with the same request counts.  The HTTP server on the
 engine backend runs the port's torch engines on the CPU here."""
 import io
 import json
+import os
 import re
 import socket
 from contextlib import redirect_stdout
@@ -67,10 +68,25 @@ def test_engine_launcher_on_cpu_reports_like_the_jax_launcher(arch):
     assert head["offered"] == head["completed"] == "4"
 
 
-def test_engine_launcher_refuses_sharded_widths():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
-        tserve.main(["--smoke", "--device", "cpu",
-                     "--devices-per-instance", "2"])
+def test_engine_launcher_refuses_sharded_widths(monkeypatch):
+    """Sharded widths are no longer refused: on the CPU the launcher
+    repeats the one CPU device for the shards (``REPRO_TORCH_DEVICE_COUNT``,
+    as the reference forces the host platform's device count) and serves
+    every request through TP=2 instances, with the width-1 run's report
+    lines and counts.  A width the model cannot shard is still refused,
+    with the reference's message."""
+    from repro_torch.utils.device import DEVICE_COUNT_ENV
+    monkeypatch.delenv(DEVICE_COUNT_ENV, raising=False)
+    argv = ["--smoke", "--device", "cpu", "--requests", "4",
+            "--prompt-len", "20", "--max-new", "6"]
+    one = _run(tserve.main, argv)
+    two = _run(tserve.main, argv + ["--devices-per-instance", "2"])
+    assert _shape(two) == _shape(one)
+    assert _counts(two) == _counts(one)
+    assert _counts(two)[0]["completed"] == "4"
+    assert int(os.environ[DEVICE_COUNT_ENV]) >= 2
+    with pytest.raises(ValueError, match="n_kv_heads=2 % 4 != 0"):
+        tserve.main(argv + ["--devices-per-instance", "4"])
 
 
 def test_engine_launcher_needs_a_card_unless_asked_for_cpu():
