@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as the check runs it
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases dryrun,examples
 
 Phases, each printing its own lines; any failure raises and the script
 exits non-zero without the final result line:
@@ -79,6 +80,33 @@ exits non-zero without the final result line:
              (bit-equal); (c) moments freed, the trained weights serve the
              serve phase's 8 requests through DynaServe (launch counters
              zeroed just before and read just after) and colocation.
+12. dryrun — (a) ``repro_torch.launch.dryrun``'s sweep of every assigned
+             arch x shape on the ``meta`` device at the one-pod H100
+             layout (data 32 x model 8), in parallel processes, one line
+             a combo (argument and temp GB, fits, FLOPs, the three
+             roofline terms), then the two-pod layout when the first
+             sweep took under ``SWEEP_SECONDS``; the combos of
+             ``tests/test_dryrun.py`` must trace; (b) ``check_on_device``
+             for a decode (chatglm3-6b, sequence-sharded), a prefill
+             (Qwen3-30B-A3B, expert-parallel) and a train step
+             (Phi-4-mini-3.8B, 4 microbatches, remat): shard 0's real
+             arguments at one device's shapes, the step run for real as
+             shard 0 of a recording group, its peak within
+             ``PEAK_BAND`` of the trace's, what the allocator holds for
+             its arguments within its rounding above the specs' bytes,
+             its FlopCounterMode count equal to the trace's (the same ops
+             by the same formulas: a consistency check of the trace), its
+             device time beside the roofline's larger term; (c)
+             chatglm3-6b at full width and 2 layers in f32, a prefill and
+             decode steps through a cache whose sequence is split over
+             two shards of a real ShardGroup time-sharing the card, with
+             the weights at the traced decode layout (every query head,
+             ``wo`` split by rows), against the whole cache and weights.
+13. examples — ``examples/serve_cluster_torch.py`` and
+             ``examples/multiturn_chat_torch.py`` in this process on the
+             card at their smoke config (Qwen2.5-14B, paged), the kernels'
+             launch counters zeroed before each and read after (both must
+             launch; the saved prefill must grow turn by turn).
 
 Optional, not in the default run: ``--phases profile`` profiles prefill
 and decode steps of one engine each of Qwen2.5-14B, Qwen3-30B-A3B,
@@ -104,7 +132,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "model", "serve", "moe", "http", "tp", "launch",
-          "dense", "train")                        # default
+          "dense", "train", "dryrun", "examples")  # default
 EXTRA_PHASES = ("profile",)                 # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
@@ -2396,6 +2424,244 @@ def run_train(seed: int, card: str, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the dryrun, and one device's real share of three steps
+# ---------------------------------------------------------------------------
+#: the combos of tests/test_dryrun.py, which must trace at the H100 layouts
+DRYRUN_MUST = (("chatglm3-6b", "decode_32k", False),
+               ("qwen3-moe-30b-a3b", "train_4k", False),
+               ("mamba2-780m", "long_500k", False),
+               ("recurrentgemma-9b", "decode_32k", True),
+               ("whisper-large-v3", "prefill_32k", True))
+#: one step of each kind on the card, at a layout with model axis 8 whose
+#: predicted one-device peak lies between 20 and 70 GB where one does
+#: (chatglm3-6b decode_32k peaks at 17.2 GB at data 1 x model 8, the
+#: largest share a model-8 layout gives its global batch of 128)
+DRYRUN_CHECKS = (("chatglm3-6b", "decode_32k", "1x8"),
+                 ("qwen3-moe-30b-a3b", "prefill_32k", "8x8"),
+                 ("phi4-mini-3.8b", "train_4k", "32x8"))
+#: measured peak over the trace's predicted peak
+PEAK_BAND = (0.85, 1.15)
+#: the sequence-sharded decode against the unsharded one, in f32
+SEQ_SHARD_TOL = 1e-5
+#: run the two-pod sweep only when the one-pod sweep took less than this
+SWEEP_SECONDS = 150.0
+
+
+def run_dryrun_sweep(multi_pod: bool, jobs: int):
+    """Every assigned arch x shape traced on ``meta`` at the production
+    layout, ``jobs`` at a time; one line a combo.  Raises when a combo of
+    ``DRYRUN_MUST`` fails; prints every failure with its error."""
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    combos = [(a, s, multi_pod) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
+    t0 = time.monotonic()
+    recs = {}
+    for arch, shape, mp, rec in dryrun._records(combos, jobs):
+        recs[(arch, shape)] = rec
+        log(f"[dryrun] {dryrun.summary_line(rec)}")
+    wall = time.monotonic() - t0
+    bad = [k for k, r in recs.items() if r["status"] != "ok"]
+    log(f"[dryrun] {'two pods' if multi_pod else 'one pod'}: "
+        f"{len(recs) - len(bad)}/{len(recs)} combos traced in {wall:.1f} s "
+        f"({jobs} processes); failed: {bad or 'none'}")
+    from repro_torch.configs import canonical
+    for arch, shape, mp in DRYRUN_MUST:
+        if mp == multi_pod and recs[(canonical(arch), shape)]["status"] != "ok":
+            raise AssertionError(f"dryrun: {arch} {shape} did not trace: "
+                                 f"{recs[(canonical(arch), shape)]['error']}")
+    return wall
+
+
+def run_dryrun_check(arch: str, shape: str, layout: str, card: str):
+    """``check_on_device`` of one combo on the card: the measured peak
+    within ``PEAK_BAND`` of the traced one; what the allocator holds for
+    the real arguments at least the specs' bytes and at most the
+    allocator's rounding above them; the FlopCounterMode count of the
+    real run equal to the meta trace's (the same ops, counted by the same
+    formulas: a check that the trace ran what the card ran)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.utils.sharding import Layout
+    dims = tuple(int(x) for x in layout.split("x"))
+    t0 = time.monotonic()
+    r = dryrun.check_on_device(arch, shape, Layout(dims, ("data", "model")),
+                               "cuda")
+    p, m = r["predicted"], r["measured"]
+    ratio = m["peak_bytes"] / p["peak_bytes"]
+    over = m["allocated_argument_bytes"] - p["argument_bytes"]
+    log(f"[dryrun] {arch} {shape} at REPRO_DRYRUN_MESH={layout} (shard 0 "
+        f"of model 8, {r['microbatches']} microbatch(es)): arguments "
+        f"{m['allocated_argument_bytes']} B allocated / "
+        f"{p['argument_bytes']} B by the specs = +{over} B (allocator "
+        f"rounding bound {m['allocator_slack_bytes']} B); "
+        f"peak {m['peak_bytes'] / 1e9:.3f} GB measured / "
+        f"{p['peak_bytes'] / 1e9:.3f} GB traced = {ratio:.4f}; FLOPs "
+        f"{m['flops']:.6e} measured / {p['flops']:.6e} traced; device "
+        f"{m['device_ms']:.3f} ms ({m['timed_by']}) / roofline "
+        f"{p['roofline_max']} {p['roofline_max_s'] * 1e3:.3f} ms = "
+        f"{m['device_ms'] / (p['roofline_max_s'] * 1e3):.3f}; "
+        f"{time.monotonic() - t0:.1f} s; {card}")
+    if m["flops"] != p["flops"]:
+        raise AssertionError(f"{arch} {shape}: FLOPs {m['flops']} on the "
+                             f"card, {p['flops']} traced")
+    if not 0 <= over <= m["allocator_slack_bytes"]:
+        raise AssertionError(f"{arch} {shape}: the allocator holds "
+                             f"{m['allocated_argument_bytes']} B for the "
+                             f"arguments, the specs give "
+                             f"{p['argument_bytes']} B (+{over} B, bound "
+                             f"{m['allocator_slack_bytes']} B)")
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"{arch} {shape}: measured peak {ratio:.4f}x "
+                             f"the traced peak, outside {PEAK_BAND}")
+    torch.cuda.empty_cache()
+
+
+def run_seqshard_decode(seed: int, n_layers: int = 2, prompt: int = 3000,
+                        steps: int = 4, S: int = 4096, B: int = 4, cfg=None,
+                        device="cuda"):
+    """chatglm3-6b at full width and ``n_layers`` layers in f32: a prefill
+    and ``steps`` decode steps through a dense cache whose sequence is
+    split over two shards of a real ShardGroup time-sharing the card,
+    each with its shard of the weights at the dryrun's traced decode
+    layout (every query head, ``wo`` split by rows), against the same
+    steps on the whole cache and weights.  The second shard holds
+    positions ``S / 2`` on, so the prompt's tail and every decode step
+    land there."""
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import traced_shard
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.tp import ShardGroup
+    from repro_torch.utils.device import (
+        DEVICE_COUNT_ENV, as_device, visible_devices)
+    from repro_torch.utils.sharding import Layout
+    cfg = (cfg or get_config("chatglm3-6b")).with_(n_layers=n_layers,
+                                                   dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = tmodel.init_params(cfg, gen, device=device)
+    toks = torch.randint(0, cfg.vocab_size, (B, prompt + steps),
+                         generator=gen, device=device)
+
+    def run(params, cache, dev):
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        out = []
+        with torch.no_grad():
+            lg, _, _ = tmodel.forward(params, cfg, toks[:, :prompt],
+                                      cache=cache, pos_offset=0)
+            out.append(lg[:, -1])
+            for i in range(steps):
+                lg, _, _ = tmodel.forward(
+                    params, cfg, toks[:, prompt + i:prompt + i + 1],
+                    cache=cache, pos_offset=torch.full(
+                        (B,), prompt + i, device=device))
+                out.append(lg[:, -1])
+        return torch.stack(out)
+
+    exp = run(params, tmodel.init_cache(cfg, B, S, device=device),
+              as_device(device))
+    layout = Layout((1, 2), ("data", "model"))
+    shards = [traced_shard(params, cfg, layout, r, seq_decode=True)
+              for r in range(2)]
+    if shards[0]["layers"][0]["mixer"]["wo"].shape[0] * 2 != \
+            cfg.n_heads * cfg.hd:
+        raise AssertionError("the traced decode layout keeps wo whole")
+    prev = os.environ.get(DEVICE_COUNT_ENV)
+    os.environ[DEVICE_COUNT_ENV] = "2"
+    group = ShardGroup(2, seq_shard=True)
+    try:
+        devs = visible_devices(torch.device(device).type)[:2]
+        caches = [tmodel.init_cache(cfg, B, S // 2, device=d) for d in devs]
+        got = group.run(lambda r: run(shards[r], caches[r], devs[r]))
+    finally:
+        group.close()
+        if prev is None:
+            os.environ.pop(DEVICE_COUNT_ENV, None)
+        else:
+            os.environ[DEVICE_COUNT_ENV] = prev
+    scale = exp.abs().max().item()
+    err = max((g - exp).abs().max().item() for g in got)
+    log(f"[dryrun] sequence-sharded decode, chatglm3-6b full width, "
+        f"{n_layers} layers, f32, B {B}, a {prompt}-token prefill and "
+        f"{steps} decode steps over a {S}-slot cache split over two shards "
+        f"of the card: max |err| {err:.3e} = {err / scale:.3e} of the "
+        f"logits' scale {scale:.3f} (bound {SEQ_SHARD_TOL})")
+    if not err <= SEQ_SHARD_TOL * scale:
+        raise AssertionError(f"sequence-sharded decode off by {err / scale} "
+                             f"of scale")
+
+
+def run_dryrun(seed: int, card: str):
+    """Phase 12."""
+    import os
+    t0 = time.monotonic()
+    jobs = max(1, min(8, (os.cpu_count() or 2) - 1))
+    wall = run_dryrun_sweep(False, jobs)
+    if wall < SWEEP_SECONDS:
+        run_dryrun_sweep(True, jobs)
+    else:
+        log(f"[dryrun] the one-pod sweep took {wall:.1f} s; the two-pod "
+            f"sweep is left out")
+    for arch, shape, layout in DRYRUN_CHECKS:
+        run_dryrun_check(arch, shape, layout, card)
+    run_seqshard_decode(seed)
+    log(f"[dryrun] phase wall {time.monotonic() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the examples
+# ---------------------------------------------------------------------------
+EXAMPLE_PATHS = ("serve_cluster_torch", "multiturn_chat_torch")
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(card: str, device="cuda"):
+    """Phase 13: the two engine examples in this process on the card, at
+    their default smoke config (Qwen2.5-14B, paged), each with the
+    kernels' launch counters zeroed just before it and read just after.
+    Returns launches by example."""
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels import paged_decode_attention as pda
+    launches = {}
+    for name in EXAMPLE_PATHS:
+        mod = load_example(name)
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        pda.launches = 0
+        cpa.launches = 0
+        with redirect_stdout(buf):
+            out = mod.main([] if device == "cuda" else ["--device", device])
+        n = {"paged_decode_attention": pda.launches,
+             "chunked_prefill_attention": cpa.launches}
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(f"[examples] {name}: {line}")
+        log(f"[examples] {name}: {time.monotonic() - t0:.1f} s, kernel "
+            f"launches {n}; {card}")
+        for kernel, k in n.items():
+            if k <= 0 and device == "cuda":
+                raise AssertionError(f"{name}: {kernel} was not launched")
+        if name == "multiturn_chat_torch":
+            saved = [t["saved"] for t in out]
+            if not all(b > a for a, b in zip(saved, saved[1:])):
+                raise AssertionError(f"{name}: saved prefill {saved} does "
+                                     f"not grow turn by turn")
+        launches[f"examples/{name}.py"] = n
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where a step's device time goes
 # ---------------------------------------------------------------------------
 def _kernel_class(name: str) -> str:
@@ -2672,6 +2938,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "train" in phases:
         launches[TRAIN_PATH] = run_train(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "dryrun" in phases:
+        run_dryrun(args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "examples" in phases:
+        launches.update(run_examples(card))
         gc.collect()
         torch.cuda.empty_cache()
     if "profile" in phases:

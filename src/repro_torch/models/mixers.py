@@ -40,7 +40,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     _gelu, apply_rope, rms_head_norm, rope_tables,
 )
-from repro_torch.models.tp import all_reduce, tp_axis
+from repro_torch.models.tp import all_gather, all_reduce, tp_axis, tp_rank
 
 NEG_INF = -1e30
 
@@ -79,14 +79,37 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv):
 
 
 def _attn_out(y, p, cfg: ModelConfig):
-    """Output projection; in a sharded step a head-sharded ``wo`` (first
-    dim < global H*hd) produces partial sums that are summed over the
-    shards so the residual add sees replicated values.  A replicated
-    ``wo`` (heads didn't divide the width) must not be summed."""
-    out = y @ p["wo"]
-    if tp_axis() is not None and p["wo"].shape[0] != cfg.n_heads * cfg.hd:
-        out = all_reduce(out)
-    return out
+    """Output projection; in a sharded step a ``wo`` split over its rows
+    (first dim < global H*hd) produces partial sums that are summed over
+    the shards so the residual add sees replicated values.  Its rows are
+    the shard's heads, or, where every shard attended with every query
+    head (the sequence-sharded decode), the shard's slice of the whole
+    output.  A replicated ``wo`` (heads didn't divide the width) must not
+    be summed."""
+    wo = p["wo"]
+    if tp_axis() is None or wo.shape[0] == cfg.n_heads * cfg.hd:
+        return y @ wo
+    if y.shape[-1] != wo.shape[0]:
+        y = y.narrow(-1, tp_rank() * wo.shape[0], wo.shape[0])
+    return all_reduce(y @ wo)
+
+
+def _shard_kv(cfg: ModelConfig, q, k, v):
+    """``k``, ``v`` narrowed to the KV heads this shard's query heads
+    attend with, where a sharded step split the query heads but kept
+    every KV head (the group does not divide the KV heads): the shard's
+    query heads lie within one KV head's group, or hold whole groups."""
+    group = tp_axis()
+    H, KV = q.shape[2], k.shape[2]
+    if (group is None or group.n == 1 or H * group.n != cfg.n_heads
+            or KV != cfg.n_kv_heads):
+        return k, v
+    qpk = cfg.n_heads // KV
+    if qpk % H and H % qpk:
+        raise ValueError(f"{H} query heads a shard straddle groups of "
+                         f"{qpk} query heads a KV head")
+    first, count = tp_rank() * H // qpk, max(1, H // qpk)
+    return k.narrow(2, first, count), v.narrow(2, first, count)
 
 
 def _gqa_scores_to_out(cfg: ModelConfig, q, k, v, mask):
@@ -94,6 +117,7 @@ def _gqa_scores_to_out(cfg: ModelConfig, q, k, v, mask):
 
     The scores are taken in the operands' dtype and then widened to f32,
     and the softmax weights narrowed to v's dtype, as in the reference."""
+    k, v = _shard_kv(cfg, q, k, v)
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
     qpk = H // KV
@@ -125,7 +149,12 @@ def _flash_gqa(cfg: ModelConfig, q, k, v, qpos, kpos, window: int = 0,
     f32 results, which is what the reference's
     ``preferred_element_type=f32`` computes.  The last tile is padded to
     ``block`` with zero K/V at position -1, as in the reference: a row
-    with no visible key then averages V over the padded tile too."""
+    with no visible key then averages V over the padded tile too.
+    A shard that holds a slice of the query heads and every KV head
+    attends with its own KV heads (``_shard_kv``)."""
+    k, v = _shard_kv(cfg, q, k, v)
+    if extra is not None:
+        extra = (*_shard_kv(cfg, q, extra[0], extra[1]), extra[2])
     B, Tq, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qpk = H // KV
@@ -171,6 +200,68 @@ def _flash_gqa(cfg: ModelConfig, q, k, v, qpos, kpos, window: int = 0,
     return out.to(q.dtype)
 
 
+def _seq_shard():
+    """(n, rank) of the sequence-sharded cache this thread's shard holds,
+    or None.  A group made with ``seq_shard`` (the dryrun's, for a dense
+    cache whose KV heads the model axis does not divide) gives each shard
+    positions ``[rank * S_buf, (rank + 1) * S_buf)`` of the whole buffer
+    (ring slots, for a ring buffer).  Decode then runs flash-decoding
+    over the shard's slice, merged over the group
+    (``_flash_decode_seqsharded``); a full-prompt prefill keeps the
+    shard's slice of the chunk's K/V, and another chunk of more than 8
+    tokens writes the shard's slots and attends over the buffer gathered
+    from the group.  The reference constrains a
+    prefill's cache to the same sharding instead (``_constrain_cache``,
+    an XLA sharding constraint the port's explicit shard shapes make
+    unnecessary)."""
+    group = tp_axis()
+    if group is None or not group.seq_shard:
+        return None
+    return group.n, tp_rank()
+
+
+def _flash_decode_seqsharded(cfg: ModelConfig, q, k, v, qpos, kpos,
+                             window: int, extra):
+    """Flash-decoding over a cache whose sequence dim is sharded over the
+    group: this shard's (m, l, acc) over its slice of the cache
+    (``_flash_gqa(return_stats=True)``), merged over the group with a max
+    and two sums (the reference's ``pmax`` / ``psum``); the in-flight
+    (unappended) tile ``extra`` = (k, v, pos) joins once, after the merge,
+    with its scores taken in f32 and then scaled, as in the reference.
+    q: (B,Tq,H,hd) replicated over the group (every query head: the
+    merge sums statistics of the same heads); k, v: (B,S_local,KV,hd);
+    kpos: (B,S_local).  Returns (B,Tq,H*hd) in q's dtype."""
+    if q.shape[2] != cfg.n_heads:
+        raise ValueError(f"the sequence-sharded decode takes every query "
+                         f"head on each shard: {q.shape[2]} of "
+                         f"{cfg.n_heads}")
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    qpk = H // KV
+    m, l, acc = _flash_gqa(cfg, q, k, v, qpos, kpos, window=window,
+                           return_stats=True)
+    m_g = all_reduce(m, op="max")
+    corr = torch.exp(m - m_g)
+    l_g = all_reduce(l * corr)
+    acc_g = all_reduce(acc * corr[..., None])
+    if extra is not None:
+        ek, ev, epos = extra
+        s = torch.einsum("btkgh,bskh->bkgts",
+                         q.reshape(B, Tq, KV, qpk, hd).float(), ek.float())
+        s = s / math.sqrt(hd)
+        ok = (epos[:, None, :] >= 0) & (epos[:, None, :] <= qpos[:, :, None])
+        s = torch.where(ok[:, None, None], s, NEG_INF)
+        m_n = torch.maximum(m_g, s.amax(dim=-1))
+        pw = torch.exp(s - m_n[..., None])
+        alpha = torch.exp(m_g - m_n)
+        l_g = l_g * alpha + pw.sum(dim=-1)
+        acc_g = acc_g * alpha[..., None] + torch.einsum(
+            "bkgts,bskh->bkgth", pw.to(ev.dtype).float(), ev.float())
+    out = acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+    out = out.movedim(3, 1).reshape(B, Tq, H * hd)       # (B,Tq,KV,g,hd)
+    return out.to(q.dtype)
+
+
 def paged_write_plan(batch_pos, block_tables, page_size: int,
                      active=None, token_mask=None) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -196,24 +287,34 @@ def paged_write_plan(batch_pos, block_tables, page_size: int,
 
 
 def dense_write_plan(batch_pos, S_buf: int, ring: int = 0, active=None,
-                     token_mask=None) \
+                     token_mask=None, base: int = 0) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Where the chunk's K/V rows go in a dense slot cache of ``S_buf``
     slots: ``(b, t, slot)`` of the tokens that are written, with
     ``slot = pos % ring`` for a ring buffer (``ring`` = its window) and
-    ``pos`` otherwise.
+    ``pos`` otherwise, less ``base`` (the first slot a shard of a
+    sequence-sharded cache holds).
 
     The reference scatters with ``mode="drop"``: masked tokens (pads,
-    inactive slots) and positions past ``S_buf`` write nothing, and they
-    are left out here.  A chunk longer than the ring maps positions ``p``
-    and ``p + ring`` to one slot; XLA applies such duplicate updates in
-    order, so the last one wins, while ``index_put_`` leaves the winner
+    inactive slots) and positions outside the buffer write nothing, and
+    they are left out here.  A chunk longer than the ring maps positions
+    ``p`` and ``p + ring`` to one slot; XLA applies such duplicate updates
+    in order, so the last one wins, while ``index_put_`` leaves the winner
     open.  So only the last valid writer of each (row, slot) is kept,
-    found by a max-reduction, which no write order can change."""
+    found by a max-reduction, which no write order can change.
+
+    A ``meta`` chunk (the dryrun's) holds no positions to test: with no
+    mask it is taken as whole and inside the buffer, as the dryrun's
+    chunks are (a full prompt from 0, or one token a slot), and its plan
+    is built without reading a position (``_whole_chunk_plan``)."""
+    if active is None and token_mask is None \
+            and batch_pos.device.type == "meta":
+        return _whole_chunk_plan(batch_pos, ring, base)
     B, T = batch_pos.shape
     dev = batch_pos.device
-    slots = batch_pos % ring if ring else batch_pos
-    wmask = _write_mask(B, T, dev, active, token_mask) & (slots < S_buf)
+    slots = (batch_pos % ring if ring else batch_pos) - base
+    wmask = _write_mask(B, T, dev, active, token_mask) \
+        & (slots >= 0) & (slots < S_buf)
     t = torch.arange(T, device=dev).expand(B, T)
     target = torch.where(wmask, slots, S_buf)
     last = torch.full((B, S_buf + 1), -1, dtype=torch.long, device=dev)
@@ -221,6 +322,22 @@ def dense_write_plan(batch_pos, S_buf: int, ring: int = 0, active=None,
     keep = wmask & (last.gather(1, target) == t)
     b, tt = torch.nonzero(keep, as_tuple=True)
     return b, tt, slots[b, tt]
+
+
+def _whole_chunk_plan(batch_pos, ring: int = 0, base: int = 0) \
+        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``dense_write_plan`` of a chunk whose every token is written and
+    inside the buffer, with no data read: every (b, t) in row-major order,
+    or for a chunk longer than the ring each row's last ``ring`` tokens
+    (a row's positions are consecutive, so those are each slot's last
+    writer)."""
+    B, T = batch_pos.shape
+    dev = batch_pos.device
+    keep = min(T, ring) if ring else T
+    b = torch.arange(B, device=dev).repeat_interleave(keep)
+    t = torch.arange(T - keep, T, device=dev).repeat(B)
+    pos = batch_pos[b, t]
+    return b, t, (pos % ring if ring else pos) - base
 
 
 def _write_mask(B: int, T: int, device, active, token_mask):
@@ -353,43 +470,59 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
             active, token_mask, plan=plans["paged"])
         return _attn_out(y, p, cfg), cache
 
+    seq = _seq_shard()
     if append_external:
         # the cache is read-only here; the chunk's K/V rides as an
         # in-flight flash tile and comes back as a delta to append
-        y = _flash_gqa(cfg, q, cache["k"], cache["v"], batch_pos,
-                       cache["pos"], window=window, extra=(k, v, batch_pos))
+        if seq is not None:
+            y = _flash_decode_seqsharded(cfg, q, cache["k"], cache["v"],
+                                         batch_pos, cache["pos"], window,
+                                         (k, v, batch_pos))
+        else:
+            y = _flash_gqa(cfg, q, cache["k"], cache["v"], batch_pos,
+                           cache["pos"], window=window,
+                           extra=(k, v, batch_pos))
         return _attn_out(y, p, cfg), {"k_delta": k, "v_delta": v,
                                       "pos_delta": batch_pos}
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     S_buf = ck.shape[1]
+    n_seq, rank = seq or (1, 0)
+    base = rank * S_buf                 # this shard's first slot
     # Full-prompt prefill (pos_offset statically 0, chunk covers the whole
-    # buffer): the chunk IS the cache
-    if (T == S_buf and isinstance(pos_offset, int) and pos_offset == 0
-            and active is None and token_mask is None):
-        ck.copy_(k)
-        cv.copy_(v)
-        cpos.copy_(batch_pos)
-        if S_buf >= FLASH_MIN_KV:
-            y = _flash_gqa(cfg, q, ck, cv, batch_pos, cpos, window=window)
+    # buffer): the chunk IS the cache (a sequence shard keeps its slice)
+    if (T == S_buf * n_seq and isinstance(pos_offset, int)
+            and pos_offset == 0 and active is None and token_mask is None):
+        ck.copy_(k[:, base:base + S_buf])
+        cv.copy_(v[:, base:base + S_buf])
+        cpos.copy_(batch_pos[:, base:base + S_buf])
+        kk, vv, kp = (ck, cv, cpos) if seq is None else (k, v, batch_pos)
+        if T >= FLASH_MIN_KV:
+            y = _flash_gqa(cfg, q, kk, vv, batch_pos, kp, window=window)
         else:
             qp = batch_pos[:, :, None]
-            kp = cpos[:, None, :]
-            mask = kp <= qp
+            mask = kp[:, None, :] <= qp
             if window:
-                mask &= (qp - kp) < window
-            y = _gqa_scores_to_out(cfg, q, ck, cv, mask)
+                mask &= (qp - kp[:, None, :]) < window
+            y = _gqa_scores_to_out(cfg, q, kk, vv, mask)
         return _attn_out(y, p, cfg), cache
-    ring = window if (window and S_buf == window) else 0
-    key = ("dense", S_buf, ring)
+    ring = window if (window and S_buf * n_seq == window) else 0
+    key = ("dense", S_buf, ring, base)
     if key not in plans:
         plans[key] = dense_write_plan(batch_pos, S_buf, ring, active,
-                                      token_mask)
+                                      token_mask, base)
     b, t, slot = plans[key]
     ck[b, slot] = k[b, t].to(ck.dtype)
     cv[b, slot] = v[b, t].to(cv.dtype)
     cpos[b, slot] = batch_pos[b, t].to(cpos.dtype)
 
-    if S_buf >= FLASH_MIN_KV:
+    if seq is not None:
+        if T <= 8:          # decode, as the reference's criterion reads
+            y = _flash_decode_seqsharded(cfg, q, ck, cv, batch_pos, cpos,
+                                         window, None)
+            return _attn_out(y, p, cfg), cache
+        # a longer chunk attends over the whole buffer, gathered
+        ck, cv, cpos = (all_gather(t, 1) for t in (ck, cv, cpos))
+    if ck.shape[1] >= FLASH_MIN_KV:
         y = _flash_gqa(cfg, q, ck, cv, batch_pos, cpos, window=window)
         return _attn_out(y, p, cfg), cache
     qpos = batch_pos[:, :, None]                        # (B, T, 1)

@@ -23,6 +23,7 @@ are updated in place.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -36,6 +37,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.mixers import (
     _batch_positions, cross_attention_fwd, mixer_fwd,
 )
+from repro_torch.models.tp import tp_axis, tp_context, tp_rank
 from repro_torch.utils.device import resolve_device, torch_dtype
 
 
@@ -64,7 +66,7 @@ def _layer_kinds(cfg: ModelConfig):
 # parameter construction
 # ==========================================================================
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None):
+                device=None, abstract: bool = False):
     """Random weights with the structure the reference's ``init_params``
     builds, at ``cfg.dtype``, generated directly on ``device`` (CUDA
     unless the caller asks for the CPU).  Scales follow the reference's
@@ -76,13 +78,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ranges; biases start at 0 and norm scales and ``D`` at 1.  The
     numbers differ from JAX's for the same seed (another generator);
     tests that compare the two convert the JAX weights with
-    ``convert``."""
-    dev = resolve_device(device)
-    if generator is None:
+    ``convert``.
+
+    ``abstract=True`` builds the same tree as ``meta`` tensors, leaf for
+    leaf (shape and dtype), with no storage and no generator: the
+    counterpart of the reference's ``_abstract_stack``, which the dryrun
+    reads."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
+    if generator is None and not abstract:
         generator = torch.Generator(device=dev).manual_seed(0)
     dt = torch_dtype(cfg.dtype)
 
     def dense(*shape, scale=None):
+        if abstract:
+            return torch.empty(shape, dtype=dt, device=dev)
         if scale is None:
             scale = 1.0 / math.sqrt(shape[0])
         w = torch.randn(shape, generator=generator, device=dev,
@@ -90,6 +99,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return (w.mul_(scale)).to(dt)
 
     def uniform(n, lo, hi):
+        if abstract:
+            return torch.empty(n, dtype=dt, device=dev)
         w = torch.rand(n, generator=generator, device=dev,
                        dtype=torch.float32)
         return (w.mul_(hi - lo).add_(lo)).to(dt)
@@ -185,7 +196,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                window_override: Optional[int] = None, device=None,
-               n_kv_heads: Optional[int] = None):
+               n_kv_heads: Optional[int] = None, abstract: bool = False):
     """Per-pattern-position caches stacked over the G groups, as the
     reference builds them: attention slots (G, batch, S_buf, KV, hd) with
     ``pos`` -1 (empty), where a local-attention layer (or every layer,
@@ -193,8 +204,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     slots; SSD state (f32) and conv tail; RG-LRU state (f32) and conv
     tail; tail-block caches without the group axis; cross K/V for every
     decoder layer.  ``n_kv_heads`` (default ``cfg.n_kv_heads``) is the KV
-    heads a cache holds: a shard of a sharded instance holds its slice."""
-    dev = resolve_device(device)
+    heads a cache holds: a shard of a sharded instance holds its slice.
+    ``abstract=True`` builds the same tree as ``meta`` tensors."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
     G = cfg.n_groups
     KV = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
     dt = torch_dtype(cfg.dtype)
@@ -233,7 +245,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                     layer_pattern=cfg.tail_kinds,
                                     cross_attention=False),
                           batch, max_len, window_override=window_override,
-                          device=dev, n_kv_heads=KV)
+                          device=dev, n_kv_heads=KV, abstract=abstract)
         # strip the G=1 leading dim for tail caches
         cache["tail"] = tuple({k: v[0] for k, v in c.items()}
                               for c in tail["blocks"])
@@ -303,13 +315,13 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 def _block_fwd(kind: str, bp, x, cfg: ModelConfig, *, cache, pos_offset,
                window_override, cross_cache=None, enc_out=None, active=None,
                token_mask=None, valid_len=None, block_tables=None,
-               page_size=0, rope=None, plans=None):
+               page_size=0, rope=None, plans=None, append_external=False):
     h, new_cache = mixer_fwd(
         kind, bp["mixer"], norm_fwd(bp["norm1"], x, cfg.norm), cfg,
         cache=cache, pos_offset=pos_offset, window_override=window_override,
         active=active, token_mask=token_mask, valid_len=valid_len,
-        block_tables=block_tables, page_size=page_size, rope=rope,
-        plans=plans)
+        append_external=append_external, block_tables=block_tables,
+        page_size=page_size, rope=rope, plans=plans)
     x = x + h
     new_cross = None
     if cfg.cross_attention and "cross" in bp:
@@ -348,7 +360,9 @@ def _group_fwd(kinds, layers, x, cfg: ModelConfig, **kw):
 def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
             extra_embeds=None, frames=None, window_override=None,
             active=None, n_valid=None, last_only: bool = False,
-            block_tables=None, page_size: int = 0, remat: bool = False):
+            block_tables=None, page_size: int = 0, remat: bool = False,
+            append_external: bool = False,
+            logits_slice: Optional[int] = None):
     """Run the decoder stack.
 
     tokens: (B, T) int token ids, or None when ``extra_embeds`` carry
@@ -366,6 +380,8 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     active: optional (B,) bool — inactive slots write no state.
     n_valid: optional (B,) valid-token counts; pad tokens write no state.
     last_only: project only each row's last valid position to vocab.
+    logits_slice: if set (and not ``last_only``), project only the last
+        ``logits_slice`` positions to vocab.
     block_tables: (B, pages_per_slot) int physical-page table for a paged
         cache; with ``page_size`` it routes attention through the paged
         kernels.
@@ -373,6 +389,14 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         pass instead of keeping its activations, as the reference's
         ``jax.checkpoint(group_step)``; the tail blocks are kept.  Only
         without a cache.
+    append_external: a dense cache's attention layers are read, not
+        written: each chunk's K/V joins the attention as an in-flight tile
+        and comes back as a delta.  The returned cache is then the
+        reference's: ``blocks`` holds one dict per pattern position of
+        ``k_delta``/``v_delta`` (G, B, T, KV, hd) and ``pos_delta``
+        (G, B, T), ``tail`` one per tail block without the G axis, and
+        ``cross`` the cross K/V.  A recurrent layer's state is still
+        updated in place, and its entry is that state.
     Returns (logits f32, cache, aux_loss): the MoE load-balance terms
     summed over layers, 0 for a dense model.
     """
@@ -380,13 +404,13 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         raise ValueError("remat recomputes the layers in the backward pass "
                          "and takes no cache: a recompute would write the "
                          "cache twice")
-    dev = params["embed"].device
     dt = torch_dtype(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt) if tokens is not None else None
     if extra_embeds is not None:
         ee = extra_embeds.to(dt)
         x = ee if x is None else torch.cat([ee, x], dim=1)
     B, T, _ = x.shape
+    dev = x.device
     token_mask = None
     if n_valid is not None:
         token_mask = torch.arange(T, device=dev)[None] < n_valid[:, None]
@@ -415,16 +439,27 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
     aux_total = 0.0
     G, PL = cfg.n_groups, cfg.pattern_len
     kinds = _layer_kinds(cfg)
+    deltas = []                   # append_external: each layer's new cache
     first = 0                     # the first layer run outside a remat group
     if remat:
         first = G * PL
+        # the backward's recompute may run on autograd's device thread,
+        # where this thread's shard context is unset: carry it there
+        group, rank = tp_axis(), tp_rank()
+
+        def shard_context():
+            return (contextlib.nullcontext(),
+                    contextlib.nullcontext() if group is None
+                    else tp_context(group, rank))
+
         for g in range(G):
             x, aux = checkpoint(
                 _group_fwd, kinds[g * PL:(g + 1) * PL],
                 params["layers"][g * PL:(g + 1) * PL], x, cfg,
                 pos_offset=pos_offset, window_override=window_override,
                 enc_out=enc_out, active=active, token_mask=token_mask,
-                valid_len=n_valid, use_reentrant=False)
+                valid_len=n_valid, use_reentrant=False,
+                context_fn=shard_context)
             aux_total = aux_total + aux
     for layer in range(first, cfg.n_layers):
         kind, bp = kinds[layer], params["layers"][layer]
@@ -436,27 +471,42 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         cc = None
         if cross is not None:
             cc = {"xk": cross["xk"][layer], "xv": cross["xv"][layer]}
-        x, _, nx, aux = _block_fwd(
+        x, nc, nx, aux = _block_fwd(
             kind, bp, x, cfg, cache=bc, pos_offset=pos_offset,
             window_override=window_override, cross_cache=cc,
             enc_out=enc_out, active=active, token_mask=token_mask,
             valid_len=n_valid, block_tables=block_tables,
-            page_size=page_size, rope=rope, plans=plans)
+            page_size=page_size, rope=rope, plans=plans,
+            append_external=append_external)
         aux_total = aux_total + aux
+        if append_external and cache is not None:
+            deltas.append(nc)
         if enc_out is not None and cc is not None:
             # fresh cross K/V for every row, as the reference stores them
             cc["xk"].copy_(nx["xk"])
             cc["xv"].copy_(nx["xv"])
+
+    new_cache = cache
+    if deltas:
+        new_cache = {"blocks": tuple(
+            {k: torch.stack([deltas[g * PL + i][k] for g in range(G)])
+             for k in deltas[i]} for i in range(PL))}
+        if cfg.tail_kinds:
+            new_cache["tail"] = tuple(deltas[G * PL:])
+        if cfg.cross_attention:
+            new_cache["cross"] = cache["cross"]
 
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     if last_only:
         idx = ((n_valid.long() - 1).clamp(min=0) if n_valid is not None
                else torch.full((B,), T - 1, device=dev, dtype=torch.long))
         x = x[torch.arange(B, device=dev), idx][:, None]
+    elif logits_slice is not None:
+        x = x[:, -logits_slice:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(x.dtype)).float()
-    return logits, cache, torch.as_tensor(aux_total, dtype=torch.float32,
-                                          device=dev)
+    return logits, new_cache, torch.as_tensor(aux_total, dtype=torch.float32,
+                                              device=dev)
 
 
 # ==========================================================================

@@ -18,6 +18,11 @@ device, and the collective sites call ``all_reduce``, which sums the
 shards' partial outputs in shard order.  The
 context is thread-local, so the shard threads of one instance and a
 one-device instance on the caller's thread never see each other's.
+
+``RecordingGroup`` is the dryrun's group: it runs one shard's body on
+the caller's thread, gives each collective's input back as its result,
+and records each collective's kind, bytes and axis, so a trace of one
+shard shows that device's share of the work and its traffic.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import queue
 import threading
 from contextlib import contextmanager
 from typing import Callable, List, Optional
+
+import torch
 
 _local = threading.local()
 
@@ -52,10 +59,22 @@ def tp_context(group: "ShardGroup", rank: int):
         _local.group, _local.rank = prev
 
 
-def all_reduce(t):
-    """Sum of ``t`` over the shards of the active group, in shard order,
-    on this shard's device (every shard of the group must call it)."""
-    return _local.group.all_reduce(_local.rank, t)
+def all_reduce(t, op: str = "sum"):
+    """``op`` ("sum" or "max") of ``t`` over the shards of the active
+    group, taken in shard order, on this shard's device (every shard of
+    the group must call it, with the same ``op``)."""
+    if op not in _REDUCE:
+        raise ValueError(f"unknown reduction {op!r}")
+    return _local.group.all_reduce(_local.rank, t, op)
+
+
+_REDUCE = {"sum": lambda a, b: a + b, "max": torch.maximum}
+
+
+def all_gather(t, dim: int):
+    """The shards' ``t`` concatenated along ``dim`` in shard order, on
+    this shard's device."""
+    return _local.group.all_gather(_local.rank, t, dim)
 
 
 class ShardGroup:
@@ -76,10 +95,17 @@ class ShardGroup:
     broken: every shard waiting for its turn raises
     ``BrokenBarrierError``, and ``run`` waits for every shard, raises the
     first shard's own error (not the aborts it caused), and leaves the
-    group ready for the next step."""
+    group ready for the next step.
 
-    def __init__(self, n: int, name: str = "shard"):
+    ``all_gather`` takes the same turns and concatenates the shards'
+    tensors in shard order.  ``seq_shard``: each shard's dense cache
+    holds a slice of the sequence, not of the KV heads; decode then
+    merges flash-decoding statistics over the group
+    (``mixers._flash_decode_seqsharded``)."""
+
+    def __init__(self, n: int, name: str = "shard", seq_shard: bool = False):
         self.n = n
+        self.seq_shard = seq_shard
         self._closed = False
         self._cond = threading.Condition()
         self._turn = 0
@@ -110,19 +136,26 @@ class ShardGroup:
             self._broken = True
             self._cond.notify_all()
 
-    def _reduce(self) -> None:
+    def _reduce(self, f) -> None:
         sums = {}
         for dev in dict.fromkeys(p.device for p in self._parts):
             acc = self._parts[0].to(dev)
             for p in self._parts[1:]:
-                acc = acc + p.to(dev)
+                acc = f(acc, p.to(dev))
             sums[dev] = acc
         self._sums = sums
 
-    def all_reduce(self, rank: int, t):
+    def all_reduce(self, rank: int, t, op: str = "sum"):
+        return self._collect(rank, t, _REDUCE[op])
+
+    def all_gather(self, rank: int, t, dim: int):
+        return self._collect(rank, t, lambda a, b: torch.cat([a, b], dim))
+
+    def _collect(self, rank: int, t, f):
+        """``f`` folded over the shards' ``t`` in shard order."""
         self._parts[rank] = t
         if rank == self.n - 1:
-            self._reduce()
+            self._reduce(f)
             self._pass(0)
         else:
             self._pass(rank + 1)
@@ -178,3 +211,60 @@ class ShardGroup:
         for t in self._threads:
             if t is not threading.current_thread():
                 t.join()
+
+
+class _Recorded(torch.autograd.Function):
+    """Identity that records a collective in the forward and its
+    conjugate in the backward: the gradient of a tensor-parallel sum's
+    input is summed over the group again (Megatron's ``f`` and ``g``)."""
+
+    @staticmethod
+    def forward(ctx, t, group, op):
+        ctx.group = group
+        group.record("all-reduce", t, group.axis, op=op)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.group.record("all-reduce", g, ctx.group.axis, op="sum")
+        return g, None, None
+
+
+class RecordingGroup:
+    """The dryrun's stand-in for the ``n`` shards of one model axis: it
+    runs shard ``rank``'s body alone, on the caller's thread.  A
+    collective returns its own input (one shard's unsummed partial, of
+    the summed shape) and appends ``{"kind", "op", "axis", "bytes"}`` to
+    ``records``; under autograd a sum records its conjugate in the
+    backward too.  The shard's values are partials, but its shapes,
+    operations and bytes are one device's true share.  ``seq_shard`` as
+    in ``ShardGroup``."""
+
+    def __init__(self, n: int, axis: str = "model", rank: int = 0,
+                 seq_shard: bool = False):
+        self.n, self.axis, self.rank = n, axis, rank
+        self.seq_shard = seq_shard
+        self.records: List[dict] = []
+
+    def record(self, kind: str, t, axis, op: Optional[str] = None) -> None:
+        """Count one collective of ``t`` (a tensor, or a byte count)."""
+        nbytes = t if isinstance(t, int) else t.numel() * t.element_size()
+        self.records.append({"kind": kind, "op": op, "axis": axis,
+                             "bytes": nbytes})
+
+    def all_reduce(self, rank: int, t, op: str = "sum"):
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _Recorded.apply(t, self, op)
+        self.record("all-reduce", t, self.axis, op=op)
+        return t
+
+    def all_gather(self, rank: int, t, dim: int):
+        """``t`` repeated ``n`` times along ``dim``: the gathered shape."""
+        out = torch.cat([t] * self.n, dim)
+        self.record("all-gather", out, self.axis)
+        return out
+
+    def run(self, fn: Callable[[int], object]) -> list:
+        """``[fn(rank)]``, run on this thread as shard ``rank``."""
+        with tp_context(self, self.rank):
+            return [fn(self.rank)]

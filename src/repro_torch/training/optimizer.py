@@ -45,17 +45,17 @@ def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 def adamw_init(params, cfg: AdamWConfig = AdamWConfig(),
                abstract: bool = False):
     """Zero moments shaped like ``params`` at ``cfg.moment_dtype`` on each
-    leaf's device, and an int32 step counter on the first leaf's."""
-    if abstract:
-        raise NotImplementedError(
-            "adamw_init(abstract=True) builds shape-only state for the "
-            "dryrun, which is not ported yet (ROADMAP.md queue A item 12)")
+    leaf's device, and an int32 step counter on the first leaf's.
+    ``abstract=True`` (or ``meta`` params) builds the same state as
+    ``meta`` tensors: shapes and dtypes for the dryrun, no storage."""
     mdt = torch_dtype(cfg.moment_dtype)
+    meta = torch.device("meta")
 
     def zeros_like(x):
-        return torch.zeros(x.shape, dtype=mdt, device=x.device)
+        return torch.zeros(x.shape, dtype=mdt,
+                           device=meta if abstract else x.device)
 
-    dev = tree_leaves(params)[0].device
+    dev = meta if abstract else tree_leaves(params)[0].device
     return {"m": tree_map(zeros_like, params),
             "v": tree_map(zeros_like, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -10,7 +10,7 @@ returned.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -26,22 +26,30 @@ def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
-                    num_microbatches: int = 1, remat: bool = True):
+                    num_microbatches: int = 1, remat: bool = True,
+                    params_view: Optional[Callable] = None,
+                    on_microbatch: Optional[Callable[[int], None]] = None):
     """With one microbatch the gradients come out in the params' dtype,
     as ``jax.value_and_grad`` gives them; with several they accumulate in
     f32 over equal slices of the batch's axis 0 and, like the loss, are
-    divided by the count."""
+    divided by the count.  ``params_view`` maps the params tree (its
+    leaves requiring grad) to what ``loss_fn`` reads (the dryrun gathers
+    sharded weights there); ``on_microbatch(i)`` is called once
+    microbatch ``i``'s gradients are taken in."""
 
     def grads_of(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        loss, _ = loss_fn(tree_unflatten(params, leaves), cfg, batch,
-                          remat=remat)
+        tree = tree_unflatten(params, leaves)
+        loss, _ = loss_fn(params_view(tree) if params_view else tree, cfg,
+                          batch, remat=remat)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads
 
     def compute_grads(params, batch):
         if num_microbatches <= 1:
             loss, grads = grads_of(params, batch)
+            if on_microbatch is not None:
+                on_microbatch(0)
             return loss, tree_unflatten(params, grads)
         n = num_microbatches
         acc_loss = torch.zeros((), dtype=torch.float32,
@@ -56,6 +64,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
             for a, g in zip(acc, grads):
                 a.add_(g)
             del grads
+            if on_microbatch is not None:
+                on_microbatch(i)
         inv = 1.0 / n
         for a in acc:
             a.mul_(inv)

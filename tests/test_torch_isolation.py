@@ -1,8 +1,9 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports JAX, ``ml_dtypes`` or the JAX package, and the
-framework-free modules it copied from ``src/repro/`` still equal their
-originals once the import prefix is rewritten, so scheduler decisions stay
-the same function of the same inputs in both packages."""
+"""The port stands alone: nothing under ``src/repro_torch/`` (nor the
+torch examples, ``examples/*_torch.py``, nor ``chip_smoke.py``) imports
+JAX, ``ml_dtypes`` or the JAX package, and the framework-free modules and
+definitions it copied from ``src/repro/`` still equal their originals once
+the import prefix is rewritten, so scheduler decisions stay the same
+function of the same inputs in both packages."""
 import ast
 from pathlib import Path
 
@@ -40,17 +41,39 @@ COPIES = [
 #: engine-backend device field and the engine branch of ``make_session``
 HTTP_PORT_ONLY = {"ServerConfig", "make_session"}
 
-#: definitions copied from ``utils/sharding.py`` (the rest of that file
-#: builds jax.sharding specs and stays behind)
-SHARDING_DEFS = ["_warn_once", "AchievedParallelism", "achieved_parallelism"]
-#: the port's own tensor-parallel layout in that file: split dims instead
-#: of the reference's PartitionSpec trees, and the shard cutter
-SHARDING_PORT_ONLY = ["_spec_tree", "tp_param_specs", "tp_cache_specs",
-                      "shard_params"]
+#: definitions copied from ``utils/sharding.py``, the mesh helpers among
+#: them (the tensor-parallel spec trees stay behind)
+SHARDING_DEFS = ["_warn_once", "AchievedParallelism", "achieved_parallelism",
+                 "_axis_size", "best_divisible_axes", "spec_for",
+                 "named_sharding", "replicated"]
+#: the port's own definitions in that file, one reason each
+SHARDING_PORT_ONLY = {
+    "_spec_tree": "split dims instead of the reference's PartitionSpec trees",
+    "tp_param_specs": "split dims instead of the reference's PartitionSpec trees",
+    "tp_cache_specs": "split dims instead of the reference's PartitionSpec trees",
+    "shard_params": "cuts one shard's views out of a tree (no jax.device_put)",
+    "PartitionSpec": "jax.sharding.PartitionSpec has no torch counterpart",
+    "Layout": "a device-free jax.sharding.Mesh for the meta-device dryrun",
+    "NamedSharding": "a layout and a spec, with jax's shard_shape",
+}
+
+#: definitions copied from ``launch/mesh.py``, ``launch/specs.py`` and
+#: ``launch/dryrun.py``; ``param_spec`` too, but for the line that sets
+#: ``lead`` (the port's layers are not stacked, so no leaf has a stack dim)
+VERBATIM_DEFS = {
+    "launch/mesh.py": ["data_axes"],
+    "launch/specs.py": ["cache_spec", "batch_spec", "effective_window"],
+    "launch/dryrun.py": ["_microbatches", "_with_groups"],
+}
+PARAM_SPEC_LEAD = (
+    '    lead = 1 if (names and names[0] in ("blocks", "encoder")) else 0',
+    "    lead = 0                            # the port's layers are not stacked")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path):
@@ -114,6 +137,21 @@ def test_copied_sharding_definitions_equal_reference():
     assert set(port) == set(SHARDING_DEFS) | set(SHARDING_PORT_ONLY)
     for name in SHARDING_DEFS:
         assert port[name] == ref[name], name
+
+
+@pytest.mark.parametrize("rel", sorted(VERBATIM_DEFS))
+def test_verbatim_definitions_equal_reference(rel):
+    ref, port = _defs(REF / rel, "repro"), _defs(PORT / rel)
+    for name in VERBATIM_DEFS[rel]:
+        assert port[name] == ref[name], f"{rel}: {name}"
+
+
+def test_param_spec_differs_from_reference_only_in_lead():
+    ref = _defs(REF / "launch" / "specs.py", "repro")["param_spec"]
+    port = _defs(PORT / "launch" / "specs.py")["param_spec"]
+    old, new = PARAM_SPEC_LEAD
+    assert ref.count(old) == 1
+    assert port == ref.replace(old, new)
 
 
 def test_http_differs_from_reference_only_in_server_config_and_make_session():

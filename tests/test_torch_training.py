@@ -255,8 +255,16 @@ def test_remat_with_a_cache_raises():
 
 
 def test_abstract_adamw_init_names_the_dryrun_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        topt.adamw_init({"w": torch.zeros(2)}, abstract=True)
+    """The dryrun's abstract AdamW state: meta moments
+    shaped like the params at the moment dtype, and a meta step."""
+    params = {"w": torch.zeros(2, 3), "b": [torch.zeros(4)]}
+    st = topt.adamw_init(params, topt.AdamWConfig(moment_dtype="bfloat16"),
+                         abstract=True)
+    for key in ("m", "v"):
+        assert st[key]["w"].shape == (2, 3) and st[key]["b"][0].shape == (4,)
+        assert st[key]["w"].dtype == torch.bfloat16
+        assert st[key]["w"].device.type == "meta"
+    assert st["step"].dtype == torch.int32 and st["step"].device.type == "meta"
 
 
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
