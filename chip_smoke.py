@@ -12,12 +12,14 @@ exits non-zero without the final result line:
 2. build   — both CUDA kernels compiled by nvcc for sm_90a from
              ``src/repro_torch/csrc`` (``-Xptxas -v`` report printed).
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the sweep shapes of the JAX kernel tests and at the
-             serving paths' shapes (Qwen2.5-14B: H 40, KV 8; Qwen3-30B-A3B:
-             H 32, KV 4; Phi-4-mini: H 24, KV 8), for bf16, fp8 and int8
-             pools, plus split-KV edges, poison pages and NaN past the
-             prefill edges; then kernel, plain and SDPA times at the three
-             paths' shapes beside
+             at the sweep shapes of the JAX kernel tests, at the serving
+             paths' shapes (Qwen2.5-14B: H 40, KV 8; Qwen3-30B-A3B: H 32,
+             KV 4; Phi-4-mini: H 24, KV 8), for bf16, fp8 and int8 pools,
+             plus split-KV edges, poison pages and NaN past the prefill
+             edges, and at every other kind of head dim the kernels take
+             (40, 96, 192, 256; f32 and bf16 queries, every pool); then
+             kernel, plain and SDPA times at the three paths' shapes and
+             at the phi4-mini smoke layout (H 6, KV 2, hd 40, f32) beside
              the kernel's bound: event time of a loop of wrapper calls and
              device time of the kernels alone (torch.profiler), the kernel
              and SDPA timed in turns.
@@ -29,7 +31,17 @@ exits non-zero without the final result line:
              kernels' launch counters (and the prefill kernel's per-body
              counters) are zeroed just before this run and read just
              after.  Then the same requests under colocation.
-6. moe     — Qwen3-30B-A3B: (a) one MoE layer at full width in f32, card
+6. nemotron — Nemotron-4-340B (H 96, KV 8, hd 192; LayerNorm, squared
+             ReLU, half rotary): (a) both kernels against their plain
+             versions at its head layout and the serving shapes, bf16, fp8
+             and int8 pools, split-KV edges, poison pages and NaN past the
+             prefill edges; (b) both timed there; (c) full width and 2
+             layers, paged forward through the kernels and through the
+             plain attention (logits within ``model_tol``); (d) full width
+             and 6 of 96 layers (60.32 GB of weights) serving the serve
+             phase's 8 requests through DynaServe (counted; every prefill
+             launch on the wgmma body) and colocation.
+7. moe     — Qwen3-30B-A3B: (a) one MoE layer at full width in f32, card
              against CPU on the same weights (identical routing but for
              counted near-ties); (b) two layers at full width in bf16,
              paged forward through the kernels and through the plain
@@ -38,10 +50,10 @@ exits non-zero without the final result line:
              DynaServePolicy) on two instances sharing the card and one
              set of weights, launch counters zeroed just before and read
              just after, dropped (token, k) MoE slots counted.
-7. http    — the port's ServingServer over a fresh session on those
+8. http    — the port's ServingServer over a fresh session on those
              weights: two /v1/completions, one streamed
              /v1/chat/completions, /metrics, clean shutdown.
-8. tp      — tensor- and expert-parallel instances, two shards
+9. tp      — tensor- and expert-parallel instances, two shards
              time-sharing the card: (a) both kernels against their plain
              versions and timed at the shards' head counts (Qwen2.5-14B
              H 20 / KV 4, Qwen3-30B-A3B H 16 / KV 2); (b) Qwen2.5-14B at
@@ -56,9 +68,12 @@ exits non-zero without the final result line:
              Qwen3-30B-A3B: one MoE layer in f32, EP=2 against EP=1 on
              the card (identical routing), then all 48 layers serving the
              8 requests on two EP=2 instances (counted, dropped slots).
-9. launch  — ``repro_torch.launch.serve.main(["--smoke", "--open-loop",
-             "--overlap"])`` in-process: the smoke-config path users start.
-10. dense  — the dense slot cache, whose mixers are plain PyTorch ops (no
+10. launch — ``repro_torch.launch.serve.main(["--smoke", "--open-loop",
+             "--overlap"])`` in-process: the smoke-config path users start;
+             then ``main(["--arch", "phi4-mini-3.8b", "--smoke"])``, whose
+             head dim of 40 takes the decode kernel's 8-lane rows and the
+             prefill kernel's FMA body (both kernels must launch).
+11. dense  — the dense slot cache, whose mixers are plain PyTorch ops (no
              paged kernel may launch): RecurrentGemma-9B and Mamba2-780M,
              full width and depth, serve the serve phase's 8 requests
              through DynaServe and colocation, then hand a request off
@@ -70,7 +85,7 @@ exits non-zero without the final result line:
              full width and two layers (RecurrentGemma five) agrees with
              the CPU in f32, and a chunk longer than the ring keeps the
              CPU's last writer on the card.
-11. train  — (a) Phi-4-mini-3.8B and Mamba2-780M at full width and two
+12. train  — (a) Phi-4-mini-3.8B and Mamba2-780M at full width and two
              layers, f32: one train step on the card against the CPU from
              the same weights and batch, and 4 microbatches with remat
              against 1 without; (b) the whole Phi-4-mini-3.8B trained in
@@ -80,7 +95,7 @@ exits non-zero without the final result line:
              (bit-equal); (c) moments freed, the trained weights serve the
              serve phase's 8 requests through DynaServe (launch counters
              zeroed just before and read just after) and colocation.
-12. dryrun — (a) ``repro_torch.launch.dryrun``'s sweep of every assigned
+13. dryrun — (a) ``repro_torch.launch.dryrun``'s sweep of every assigned
              arch x shape on the ``meta`` device at the one-pod H100
              layout (data 32 x model 8), in parallel processes, one line
              a combo (argument and temp GB, fits, FLOPs, the three
@@ -102,7 +117,7 @@ exits non-zero without the final result line:
              two shards of a real ShardGroup time-sharing the card, with
              the weights at the traced decode layout (every query head,
              ``wo`` split by rows), against the whole cache and weights.
-13. examples — ``examples/serve_cluster_torch.py`` and
+14. examples — ``examples/serve_cluster_torch.py`` and
              ``examples/multiturn_chat_torch.py`` in this process on the
              card at their smoke config (Qwen2.5-14B, paged), the kernels'
              launch counters zeroed before each and read after (both must
@@ -131,8 +146,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "model", "serve", "moe", "http", "tp", "launch",
-          "dense", "train", "dryrun", "examples")  # default
+PHASES = ("kernels", "model", "serve", "nemotron", "moe", "http", "tp",
+          "launch", "dense", "train", "dryrun", "examples")  # default
 EXTRA_PHASES = ("profile",)                 # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
@@ -140,6 +155,8 @@ EXTRA_PHASES = ("profile",)                 # only when asked for
 # bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# f32 outside the tensor cores: the peak of the f32 FMA body
+F32_FLOPS_PER_S = 67e12
 
 # Kernel-vs-plain tolerances, elementwise: |got - exp| <= abs + rel * |exp|.
 # f32 outputs differ only by summation order: 1e-4 absolute.  bf16: the
@@ -152,15 +169,33 @@ BF16_FLOPS_PER_S = 989e12
 # the output bit-identical.
 TOL = {"bfloat16": (2e-2, 2 ** -7), "float32": (1e-4, 0.0)}
 # Full-width 2-layer model, kernels vs plain attention, max abs error of
-# the f32 logits (std ~1.4): the two attentions sum in another order, so
+# the logits (std ~1.4): the two attentions sum in another order, so
 # their bf16 outputs differ by single roundings (relative 2**-8), and
 # those differences pass through two layers of bf16 products; 0.1 is 7%
-# of the logits' std.
+# of the logits' std.  The logits are a bf16 product cast to f32, so two
+# runs differ by whole bf16 steps of the logits they differ at: 0.1 is
+# 3.2 steps of a logit in [4, 8) (the 14B's largest is about 4.5).  A
+# model whose largest logit is 2**e >= 8 is held to the same 3.2 steps
+# of it: MODEL_TOL * 2**(e - 2) (``model_tol``).
 MODEL_TOL = 0.1
+
+
+def model_tol(logits) -> float:
+    """``MODEL_TOL`` where the largest |logit| is below 8; above, the
+    same count of bf16 steps of it (the step doubles with each octave)."""
+    top = float(logits.abs().max())
+    octave = math.floor(math.log2(top)) if top > 0 else 0
+    return MODEL_TOL * 2.0 ** max(0, octave - 2)
 
 
 MOE_PATH = "qwen3-moe-30b-a3b"
 TRAIN_PATH = "phi4-mini-3.8b"
+NEMOTRON_PATH = "nemotron-4-340b"
+# the launcher's phi4-mini smoke config: H 6, KV 2, hd 40, f32
+PHI4_SMOKE_PATH = "phi4-mini-3.8b smoke"
+# head dims the kernel checks sweep beside the serving paths' 128: rows
+# that leave lanes idle, a row of 96, Nemotron's 192 and the widest, 256
+HEAD_DIMS = (40, 96, 192, 256)
 KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
 
 
@@ -239,7 +274,10 @@ class KernelChecks:
 
     # ---- paged decode ----
     def decode_case(self, B, H, KV, hd, page, n_pp, dtype, lens=None,
-                    prec=None, main_path=False, what="", zero_rows=()):
+                    prec=None, main_path=False, what="", zero_rows=(),
+                    kv_dtype=None):
+        """``kv_dtype``: the pool's type when it is not quantized (q's
+        type by default)."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.paged_decode_attention import \
@@ -250,7 +288,7 @@ class KernelChecks:
         vp = self.randn(n_pages, page, KV, hd)
         ks = vs = None
         if prec is None:
-            kp, vp = kp.to(dtype), vp.to(dtype)
+            kp, vp = kp.to(kv_dtype or dtype), vp.to(kv_dtype or dtype)
         else:
             kp, ks = self.quant(kp, prec)
             vp, vs = self.quant(vp, prec)
@@ -267,7 +305,8 @@ class KernelChecks:
         tol, rel = TOL[str(dtype).replace("torch.", "")]
         return self.record("paged_decode_attention", out, exp, tol,
                            what or f"B{B} H{H} KV{KV} hd{hd} page{page} "
-                                   f"{dtype} {prec}", main_path, rel)
+                                   f"{dtype} {prec or kv_dtype}", main_path,
+                           rel)
 
     def decode_poison(self, B, H, KV, hd, page, n_pp, dtype, lens,
                       prec=None):
@@ -318,7 +357,9 @@ class KernelChecks:
 
     # ---- chunked prefill ----
     def prefill_case(self, B, Tq, S, H, KV, hd, dtype, offsets=None,
-                     prec=None, main_path=False, what=""):
+                     prec=None, main_path=False, what="", kv_dtype=None):
+        """``kv_dtype``: the K/V type when it is not quantized (q's type
+        by default)."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.chunked_prefill_attention import \
@@ -328,7 +369,7 @@ class KernelChecks:
         v = self.randn(B, S, KV, hd)
         ks = vs = None
         if prec is None:
-            k, v = k.to(dtype), v.to(dtype)
+            k, v = k.to(kv_dtype or dtype), v.to(kv_dtype or dtype)
         else:
             k, ks = self.quant(k, prec)
             v, vs = self.quant(v, prec)
@@ -341,7 +382,8 @@ class KernelChecks:
         tol, rel = TOL[str(dtype).replace("torch.", "")]
         return self.record("chunked_prefill_attention", out, exp, tol,
                            what or f"B{B} Tq{Tq} S{S} H{H} KV{KV} hd{hd} "
-                                   f"{dtype} {prec}", main_path, rel)
+                                   f"{dtype} {prec or kv_dtype}", main_path,
+                           rel)
 
     def prefill_poison(self, B, Tq, S, H, KV, hd, dtype, offsets, prec=None):
         """K/V past each row's causal frontier hold garbage: the output
@@ -414,14 +456,15 @@ class KernelChecks:
                            f"NaN past Tq {Tq} and S {S} {dtype} {prec}")
 
 
-def serving_paths(kc, paths):
+def serving_paths(kc, paths, hd: int = 128):
     """A serving path's shapes (8 slots, page 8, 512-page tables, 512-token
     chunks against 4096 keys) for bf16, fp8 and int8 pools: decode and
     prefill against the plain versions, poison pages past the lengths and
-    inactive padded slots.  ``paths``: (name, H, KV, decode lengths)."""
+    inactive padded slots.  ``paths``: (name, H, KV, decode lengths), at
+    head dim ``hd``."""
     import torch
     bf16 = torch.bfloat16
-    B, hd, page, n_pp = 8, 128, 8, 512
+    B, page, n_pp = 8, 8, 512
     for path, H, KV, lens in paths:
         for prec in (None, "fp8", "int8"):
             kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=lens,
@@ -479,43 +522,64 @@ def run_kernel_checks(seed: int):
     # (H 24, KV 8, 3 query heads a KV head).  Drawn in this order, the fp8
     # edge case below (Tq 512, S 4000) comes out one bf16 ulp over the
     # bound's absolute term, within its ulp term.
-    B, hd, page, n_pp = 8, 128, 8, 512
     serving_paths(kc, (
         ("qwen2.5-14b", 40, 8, [1, 17, 300, 1024, 2047, 3000, 4095, 4096]),
         (MOE_PATH, 32, 4, [128, 300, 777, 1024, 2047, 3000, 4095, 4096]),
         (TRAIN_PATH, 24, 8, [1, 64, 513, 1024, 1999, 2048, 3333, 4096])))
-    H, KV = 40, 8
-    # split-KV edges at the main path's table width (spans of SPLIT = 256
-    # tokens, 32 pages of 8): lengths 1, page-1, SPLIT-1, SPLIT, SPLIT+1
-    # and the whole table, beside two padded inactive slots; poison pages
-    # past lengths that end inside a span.  Prefill edges: Tq 1, 130 and
-    # 512; S no multiple of the 128-key tile; S shorter than offset + Tq;
-    # S = 4000, which wraps the 2-stage K/V ring 16 times; NaN past Tq
-    # and S read through row views.  Every pool format.
-    split = 256
+    edge_cases(kc, 40, 8, 128)
+    # the other bodies read through row views too
+    kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, bf16, [20, 37])
+    kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, f32, [20, 37])
+    # every head dim the kernels take, not only the serving paths': rows
+    # that leave lanes idle (40: 5 of 8 lanes a row in decode), that take
+    # the whole warp (192, 256), the hd-192 wgmma tiles of 64 keys (S 300
+    # is 5 of them, Tq 130 two q tiles) and the FMA body up to 256; qpk 6
+    # leaves idle head slots in decode's last group (groups of 8 heads for
+    # rows of up to 128, of 4 for wider rows)
+    # f32 and bf16 queries on f32, bf16, fp8 and int8 pools
+    for hd_x in HEAD_DIMS:
+        for dt in (f32, bf16):
+            for kv_dt, prec in ((f32, None), (bf16, None), (None, "fp8"),
+                                (None, "int8")):
+                kc.decode_case(2, 12, 2, hd_x, 8, 40, dt, lens=[9, 300],
+                               prec=prec, kv_dtype=kv_dt)
+                kc.prefill_case(2, 130, 300, 12, 2, hd_x, dt,
+                                offsets=[170, 0], prec=prec, kv_dtype=kv_dt)
+        kc.decode_poison(2, 4, 2, hd_x, 8, 8, bf16, [11, 40])
+        kc.prefill_poison(2, 24, 96, 4, 2, hd_x, bf16, [0, 50])
+        kc.prefill_nan_edge(2, 33, 70, 4, 2, hd_x, bf16, [20, 37])
+    log_kernel_checks(kc)
+    return {name: max(errs[name] for errs in kc.err.values())
+            for name in KERNELS}
+
+
+def edge_cases(kc, H, KV, hd, page=8, n_pp=512, split=256):
+    """Split-KV edges at a serving path's table width (spans of SPLIT =
+    256 tokens, 32 pages of 8): lengths 1, page-1, SPLIT-1, SPLIT, SPLIT+1
+    and the whole table, beside two padded inactive slots; poison pages
+    past lengths that end inside a span.  Prefill edges: Tq 1, 130 and
+    512; S no multiple of the K/V tile; S shorter than offset + Tq; S =
+    4000, which wraps the K/V ring many times; NaN past Tq and S read
+    through row views.  Every pool format, bf16 queries."""
+    import torch
+    bf16 = torch.bfloat16
     edge_lens = [1, page - 1, split - 1, split, split + 1, page * n_pp, 1, 1]
     for prec in (None, "fp8", "int8"):
         name = prec or "bf16"
-        kc.decode_case(B, H, KV, hd, page, n_pp, bf16, lens=edge_lens,
+        kc.decode_case(8, H, KV, hd, page, n_pp, bf16, lens=edge_lens,
                        prec=prec, zero_rows=(6, 7),
-                       what=f"split edges, {name} pool")
-        kc.decode_poison(B, H, KV, hd, page, 64, bf16,
+                       what=f"split edges hd {hd}, {name} pool")
+        kc.decode_poison(8, H, KV, hd, page, 64, bf16,
                          [1, 7, 100, 255, 257, 300, 385, 511], prec=prec)
         for Tq, S, offs in [(1, 300, [0, 299]), (130, 300, [170, 250]),
                             (512, 4000, [0, 3700])]:
             kc.prefill_case(2, Tq, S, H, KV, hd, bf16, offsets=offs,
                             prec=prec, what=f"edges Tq {Tq} S {S} offsets "
-                                            f"{offs}, {name} KV")
+                                            f"{offs} hd {hd}, {name} KV")
         kc.prefill_nan_edge(2, 130, 300, H, KV, hd, bf16, [170, 250],
                             prec=prec)
         kc.prefill_nan_edge(2, 512, 1000, H, KV, hd, bf16, [488, 0],
                             prec=prec)
-    # the other bodies read through row views too
-    kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, bf16, [20, 37])
-    kc.prefill_nan_edge(2, 33, 70, 4, 2, 64, f32, [20, 37])
-    log_kernel_checks(kc)
-    return {name: max(errs[name] for errs in kc.err.values())
-            for name in KERNELS}
 
 
 def log_kernel_checks(kc, note=""):
@@ -575,12 +639,15 @@ def in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
     return {k: (sum(ev[k]) / rounds, sum(dev[k]) / rounds) for k in fns}
 
 
-def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True):
-    """Kernel, plain and SDPA times at one serving path's shapes (bf16,
-    ``H`` query and ``KV`` key/value heads), with each kernel's bound from
-    this run's inputs: event time of a loop of wrapper calls and device
-    time of the kernels alone, the kernel and SDPA in turns; with
-    ``quant``, the prefill kernel over fp8 and int8 pools too."""
+def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True,
+                 hd: int = 128, dtype: str = "bfloat16"):
+    """Kernel, plain and SDPA times at one serving path's shapes (``H``
+    query and ``KV`` key/value heads of ``hd``, in ``dtype``), with each
+    kernel's bound from this run's inputs (f32 operations against the f32
+    peak outside the tensor cores): event time of a loop of wrapper calls
+    and device time of the kernels alone, the kernel and SDPA in turns;
+    with ``quant``, the prefill kernel over fp8 and int8 pools too.  The
+    prefill row names the body the kernel took."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import chunked_prefill_attention as cpa
@@ -592,17 +659,19 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True):
         paged_decode_attention
     g = torch.Generator(device="cuda").manual_seed(seed)
     gc = torch.Generator().manual_seed(seed)
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)            # the working type of the path
+    esz = torch.empty(0, dtype=dt).element_size()
+    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
     res = {}
 
     # paged decode: 8 slots, page 8, a table of 512 pages (4096 tokens) as
     # in the serve phase; long contexts spread up to 4096, then short ones
     # (128-256 tokens, one live span) as the serve phase's decode sees
-    B, hd, page, n_pp = 8, 128, 8, 512
+    B, page, n_pp = 8, 8, 512
     n_pages = B * n_pp
-    q = torch.randn(B, H, hd, generator=g, device="cuda").to(bf16)
-    kp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(bf16)
-    vp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(bf16)
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+    kp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(dt)
+    vp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(dt)
     tbl = torch.randperm(n_pages, generator=gc).reshape(B, n_pp).to(
         torch.int32).cuda()
     kd = gather_pages(kp, tbl).transpose(1, 2).repeat_interleave(H // KV, 1)
@@ -621,14 +690,14 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True):
         plain = cuda_ms(lambda: ref.paged_decode_attention_ref(
             q, kp, vp, tbl, lens), 5)
         ctx = sum(lens_l)
-        n_bytes = (2 * B * H * hd * 2                      # q in, out
-                   + 2 * ctx * KV * hd * 2                 # live K and V
+        n_bytes = (2 * B * H * hd * esz                    # q in, out
+                   + 2 * ctx * KV * hd * esz               # live K and V
                    + sum(-(-n // page) for n in lens_l) * 4 + B * 4)
         r = dict(ms=t["kernel"][0], device_ms=t["kernel"][1], plain_ms=plain,
                  library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
-                 **bound(n_bytes, 4 * ctx * H * hd),
+                 **bound(n_bytes, 4 * ctx * H * hd, peak),
                  shape=f"B={B} H={H} KV={KV} hd={hd} page={page} n_pp={n_pp} "
-                       f"contexts={lens_l} bf16")
+                       f"contexts={lens_l} {dtype}")
         res["paged_decode_attention" + ("" if label == "long" else
                                         " (short contexts)")] = r
     del kd, vd, kp, vp
@@ -636,34 +705,37 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True):
     # chunked prefill: 8 rows of a 512-token chunk against S=4096
     Tq, S = 512, 4096
     offs_l = [0, 512, 1024, 1536, 2048, 2560, 3072, 3584]
-    qp = torch.randn(B, Tq, H, hd, generator=g, device="cuda").to(bf16)
-    k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
-    v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
+    qp = torch.randn(B, Tq, H, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
     off = torch.tensor(offs_l, dtype=torch.int32).cuda()
     qd = qp.transpose(1, 2)
     kd = k.transpose(1, 2).repeat_interleave(H // KV, 1)
     vd = v.transpose(1, 2).repeat_interleave(H // KV, 1)
     qpos = off[:, None] + torch.arange(Tq, device="cuda")[None]
     mask = (torch.arange(S, device="cuda")[None, None] <= qpos[..., None])
+    before = dict(cpa.body_launches)
     t = in_turns({
         "kernel": lambda: chunked_prefill_attention(qp, k, v, off),
         "sdpa": lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask[:, None])}, 10)
+    body = [b for b in cpa.BODIES if cpa.body_launches[b] != before[b]]
     plain = cuda_ms(lambda: ref.chunked_prefill_attention_ref(
         qp, k, v, off), 3)
     visible = sum(min(S, o + i + 1) for o in offs_l for i in range(Tq))
     keys = sum(min(S, o + Tq) for o in offs_l)
-    n_bytes = 2 * B * Tq * H * hd * 2 + 2 * keys * KV * hd * 2 + B * 4
+    n_bytes = 2 * B * Tq * H * hd * esz + 2 * keys * KV * hd * esz + B * 4
     res["chunked_prefill_attention"] = dict(
         ms=t["kernel"][0], device_ms=t["kernel"][1], plain_ms=plain,
         library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
-        **bound(n_bytes, 4 * visible * H * hd),
-        shape=f"B={B} Tq={Tq} S={S} H={H} KV={KV} hd={hd} offsets={offs_l} bf16")
+        **bound(n_bytes, 4 * visible * H * hd, peak), body="/".join(body),
+        shape=f"B={B} Tq={Tq} S={S} H={H} KV={KV} hd={hd} offsets={offs_l} "
+              f"{dtype}")
     # quantized pools at the same shape: their codes convert to bf16 in
     # the kernel, so the same operations count, over 1-byte codes plus an
     # f32 scale a key row
     del kd, vd
-    q_bound = bound(2 * B * Tq * H * hd * 2 + 2 * keys * (KV * hd + 4)
+    q_bound = bound(2 * B * Tq * H * hd * esz + 2 * keys * (KV * hd + 4)
                     + B * 4, 4 * visible * H * hd)
     quant_t = {}
     for prec in ("fp8", "int8") if quant else ():
@@ -676,7 +748,9 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True):
                               if cpa.body_launches[b] != before[b]])
         del kq, vq
     for name, r in res.items():
-        log(f"[time] {path} {name}: kernel {r['ms']:.4f} ms (events), device "
+        log(f"[time] {path} {name}"
+            + (f" ({r['body']} body)" if "body" in r else "")
+            + f": kernel {r['ms']:.4f} ms (events), device "
             f"{r['device_ms']:.4f} ms (torch.profiler); SDPA "
             f"{r['library_ms']:.4f} ms (events), device "
             f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
@@ -695,9 +769,10 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True):
     return res
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -759,30 +834,47 @@ def model_steps(params, cfg, device, seed: int, page: int = 8, feed=None):
     return out, fed
 
 
-def run_model_check(seed: int):
+def run_model_check(seed: int, cfg=None, tag: str = "model"):
+    """``cfg`` (Qwen2.5-14B by default) at full width and 2 layers in
+    bf16: the paged forward through the kernels and through the plain
+    attention on the same weights, logits within ``MODEL_TOL``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
-    cfg = get_config("qwen2.5-14b").with_(n_layers=2)
+    cfg = (cfg or get_config("qwen2.5-14b")).with_(n_layers=2)
+    t0 = time.monotonic()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
                          device="cuda")
+    n_bytes = tensor_bytes(params)
     with torch.no_grad():
         got, fed = model_steps(params, cfg, "cuda", seed)
         with plain_attention():
             exp, _ = model_steps(params, cfg, "cuda", seed, feed=fed)
-    worst = 0.0
+    worst, steps, same = 0.0, [], 0
     for i, (a, b) in enumerate(zip(got, exp)):
         if a.shape != (2, 1, cfg.vocab_size) or not torch.isfinite(a).all():
             raise AssertionError(f"model step {i}: bad logits {a.shape}")
-        worst = max(worst, float((a - b).abs().max()))
-    if worst > MODEL_TOL:
-        raise AssertionError(f"model logits kernels vs plain: max abs err "
-                             f"{worst:.3e} > {MODEL_TOL}")
-    log(f"[model] qwen2.5-14b full width, 2 layers, bf16: {len(got)} steps "
-        f"(prefill, mixed, decode); logits kernels vs plain max abs err "
-        f"{worst:.3e} (tol {MODEL_TOL}, logits std "
-        f"{float(exp[0].std()):.3f})")
+        steps.append(float((a - b).abs().max()))
+        worst = max(worst, steps[-1])
+        same += int((a.argmax(-1) == b.argmax(-1)).sum())
+    top = max(float(b.abs().max()) for b in exp)
+    tol = model_tol(torch.tensor(top))
+    step = 2.0 ** (math.floor(math.log2(top)) - 7)   # bf16 step at |top|
+    line = (f"[{tag}] {cfg.name} full width (H {cfg.n_heads}, KV "
+            f"{cfg.n_kv_heads}, hd {cfg.hd}), 2 layers, bf16, weights "
+            f"{n_bytes / 1e9:.3f} GB: {len(got)} steps (prefill, mixed, "
+            f"decode) in {time.monotonic() - t0:.1f} s; logits kernels vs "
+            f"plain max abs err {worst:.3e} by step "
+            f"[{', '.join(f'{e:.3e}' for e in steps)}] (tol {tol:.3g}: "
+            f"MODEL_TOL at a largest |logit| of {top:.3f}, whose bf16 step "
+            f"is {step:.3g}; the error is {worst / step:.2f} steps; logits "
+            f"std {float(exp[0].std()):.3f}); argmax equal {same}/"
+            f"{2 * len(got)}")
+    if worst > tol:
+        raise AssertionError(f"model logits kernels vs plain: {line}")
+    log(line)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -926,7 +1018,55 @@ def report(name, m, moved, wall, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: Qwen3-30B-A3B (MoE)
+# phase 6: Nemotron-4-340B (hd 192) at full width
+# ---------------------------------------------------------------------------
+#: Nemotron-4-340B's depth in its serve run: 6 of 96 layers at full width,
+#: 30.161B parameters (60.32 GB in bf16) with the embedding and the untied
+#: head; depth is the one cut
+NEMOTRON_LAYERS = 6
+#: decode lengths of its serving-shape kernel cases
+NEMOTRON_LENS = [1, 17, 300, 1024, 2047, 3000, 4095, 4096]
+
+
+def run_nemotron(seed: int, card: str):
+    """Nemotron-4-340B's head layout (H 96, KV 8, hd 192: 12 query heads
+    a KV head, one row a warp in decode, the 64-key wgmma tiles in
+    prefill): (a) both kernels against their plain versions at the
+    serving shapes, with split-KV edges, poison pages and NaN past the
+    prefill edges, for bf16, fp8 and int8 pools; (b) both timed there
+    beside their bound and one SDPA call; (c) full width and 2 layers,
+    kernels against the plain attention on the same weights; (d) full
+    width and ``NEMOTRON_LAYERS`` layers serving the serve phase's 8
+    requests through DynaServe (counted: every prefill launch on the
+    wgmma body) and colocation.  Returns (max errors, times, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.monotonic()
+    cfg = get_config(NEMOTRON_PATH)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kc = KernelChecks(seed)
+    serving_paths(kc, ((NEMOTRON_PATH, H, KV, NEMOTRON_LENS),), hd=hd)
+    edge_cases(kc, H, KV, hd)
+    log_kernel_checks(kc, f"at H {H} / KV {KV} / hd {hd} ")
+    errs = dict(kc.err[NEMOTRON_PATH])
+    del kc
+    torch.cuda.empty_cache()
+    times = time_kernels(seed, NEMOTRON_PATH, H, KV, hd=hd)
+    torch.cuda.empty_cache()
+    run_model_check(seed, get_config(NEMOTRON_PATH), tag="nemotron")
+    launches, peak = run_serve(seed, card,
+                               cfg=cfg.with_(n_layers=NEMOTRON_LAYERS))
+    gc.collect()       # the sessions' reference cycles hold the weights
+    torch.cuda.empty_cache()
+    log(f"[nemotron] {NEMOTRON_LAYERS} of {cfg.n_layers} layers at full "
+        f"width served; max allocated in the DynaServe run "
+        f"{peak / 1e9:.3f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.3f}; "
+        f"phase wall {time.monotonic() - t0:.1f} s; card {card}")
+    return errs, times, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Qwen3-30B-A3B (MoE)
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def moe_routing(tape=None, replay=None, flips=None, dropped=None):
@@ -1144,7 +1284,7 @@ def run_moe_serve(seed: int, card: str, cfg=None, device="cuda",
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the HTTP front door over the MoE weights
+# phase 8: the HTTP front door over the MoE weights
 # ---------------------------------------------------------------------------
 def http_request(port, method, path, body=None, timeout=600.0):
     """One HTTP/1.1 exchange with the server on localhost (it closes
@@ -1246,7 +1386,7 @@ def run_http(seed: int, cfg, params, n_pages: int, page: int = 8):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: tensor- and expert-parallel instances, two shards on one card
+# phase 9: tensor- and expert-parallel instances, two shards on one card
 # ---------------------------------------------------------------------------
 TP_PATH = "qwen2.5-14b tp2"
 EP_PATH = f"{MOE_PATH} ep2"
@@ -1655,37 +1795,55 @@ def run_tp(seed: int, card: str, serve_peak=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the launcher users start
+# phase 10: the launcher users start
 # ---------------------------------------------------------------------------
+#: the launcher's runs: its default smoke config (Qwen2.5-14B's family,
+#: hd 32) with the open loop and overlap, then phi4-mini's smoke config,
+#: whose head dim of 40 no earlier path of the card runs
+LAUNCH_RUNS = (["--smoke", "--open-loop", "--overlap"],
+               ["--arch", "phi4-mini-3.8b", "--smoke"])
+
+
 def run_launch(device="cuda"):
+    """``repro_torch.launch.serve.main`` in-process for each of
+    ``LAUNCH_RUNS``: every request completes and, on the card, both
+    kernels launch.  Returns the phi4-mini run's launches by kernel."""
     import io
     from contextlib import redirect_stdout
     from repro_torch.kernels import chunked_prefill_attention as cpa
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.launch import serve as launcher
-    argv = ["--smoke", "--open-loop", "--overlap"]
-    if device != "cuda":
-        argv += ["--device", device]
-    before = (pda.launches, cpa.launches)
-    buf = io.StringIO()
-    t0 = time.monotonic()
-    with redirect_stdout(buf):
-        rc = launcher.main(argv)
-    lines = buf.getvalue().splitlines()
-    head = dict(kv.split("=") for kv in lines[1].split()[:4])
-    if rc != 0 or head["completed"] != head["offered"]:
-        raise AssertionError(f"launcher: rc {rc}, {lines[1]}")
-    for line in lines:
-        log(f"[launch] {line}")
-    log(f"[launch] python -m repro_torch.launch.serve {' '.join(argv)}: "
-        f"{head['completed']}/{head['offered']} requests complete in "
-        f"{time.monotonic() - t0:.1f} s; kernel launches "
-        f"paged_decode_attention {pda.launches - before[0]}, "
-        f"chunked_prefill_attention {cpa.launches - before[1]}")
+    for argv in LAUNCH_RUNS:
+        if device != "cuda":
+            argv = argv + ["--device", device]
+        before = (pda.launches, cpa.launches, dict(cpa.body_launches))
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with redirect_stdout(buf):
+            rc = launcher.main(argv)
+        lines = buf.getvalue().splitlines()
+        head = dict(kv.split("=") for kv in lines[1].split()[:4])
+        if rc != 0 or head["completed"] != head["offered"]:
+            raise AssertionError(f"launcher: rc {rc}, {lines[1]}")
+        for line in lines:
+            log(f"[launch] {line}")
+        launches = {"paged_decode_attention": pda.launches - before[0],
+                    "chunked_prefill_attention": cpa.launches - before[1]}
+        bodies = {b: n - before[2][b] for b, n in cpa.body_launches.items()}
+        log(f"[launch] python -m repro_torch.launch.serve {' '.join(argv)}: "
+            f"{head['completed']}/{head['offered']} requests complete in "
+            f"{time.monotonic() - t0:.1f} s; kernel launches {launches}, "
+            f"chunked_prefill_attention by body {bodies}")
+        if device == "cuda":
+            for name, n in launches.items():
+                if n <= 0:
+                    raise AssertionError(f"{name} was not launched by "
+                                         f"{' '.join(argv)}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the dense slot cache (recurrent, encoder-decoder and VLM models)
+# phase 11: the dense slot cache (recurrent, encoder-decoder and VLM models)
 # ---------------------------------------------------------------------------
 DENSE_PATHS = ("recurrentgemma-9b", "mamba2-780m")
 # handoff past the window: beta's state is alpha's byte for byte, so the
@@ -2126,7 +2284,7 @@ def run_dense(seed: int, card: str, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: training, then serving the trained weights
+# phase 12: training, then serving the trained weights
 # ---------------------------------------------------------------------------
 #: card against CPU in f32 (TF32 off): loss, grad norm, lr and the moments
 #: to F32_RTOL of their own largest magnitude; the updated params to the
@@ -2424,7 +2582,7 @@ def run_train(seed: int, card: str, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the dryrun, and one device's real share of three steps
+# phase 13: the dryrun, and one device's real share of three steps
 # ---------------------------------------------------------------------------
 #: the combos of tests/test_dryrun.py, which must trace at the H100 layouts
 DRYRUN_MUST = (("chatglm3-6b", "decode_32k", False),
@@ -2610,7 +2768,7 @@ def run_dryrun(seed: int, card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the examples
+# phase 14: the examples
 # ---------------------------------------------------------------------------
 EXAMPLE_PATHS = ("serve_cluster_torch", "multiturn_chat_torch")
 
@@ -2891,12 +3049,16 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     errs = {}
-    times, moe_times, train_times = {}, {}, {}
+    times, moe_times, train_times, phi4_times = {}, {}, {}, {}
     if "kernels" in phases:
         errs = run_kernel_checks(args.seed)
         times = time_kernels(args.seed, "qwen2.5-14b", 40, 8)
         moe_times = time_kernels(args.seed, MOE_PATH, 32, 4)
         train_times = time_kernels(args.seed, TRAIN_PATH, 24, 8)
+        # the launch phase's phi4-mini smoke layout (H 6, KV 2, hd 40,
+        # f32) at the serving shapes
+        phi4_times = time_kernels(args.seed, PHI4_SMOKE_PATH, 6, 2,
+                                  quant=False, hd=40, dtype="float32")
         torch.cuda.empty_cache()
     if "model" in phases:
         run_model_check(args.seed)
@@ -2906,6 +3068,11 @@ def main(argv=None) -> int:
         launches["qwen2.5-14b"], serve_peak = run_serve(args.seed, card)
         gc.collect()     # the sessions' reference cycles hold the weights
         torch.cuda.empty_cache()
+    nemotron_times = {}
+    if "nemotron" in phases:
+        nem_errs, nemotron_times, launches[NEMOTRON_PATH] = run_nemotron(
+            args.seed, card)
+        errs = {k: max(errs.get(k, 0.0), e) for k, e in nem_errs.items()}
     moe = None
     if "moe" in phases:
         run_moe_layer_check(args.seed)
@@ -2931,7 +3098,7 @@ def main(argv=None) -> int:
         launches.update(tp_launches)
         errs = {k: max(errs.get(k, 0.0), e) for k, e in tp_errs.items()}
     if "launch" in phases:
-        run_launch()
+        launches[PHI4_SMOKE_PATH] = run_launch()
     if "dense" in phases:
         run_dense(args.seed, card)
         gc.collect()
@@ -2976,10 +3143,14 @@ def main(argv=None) -> int:
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
             "library_device_ms": t.get("library_device_ms"),
-            # the same times at the Qwen3-30B-A3B and Phi-4-mini shapes,
-            # and at the shards' shapes of the TP=2 and EP=2 instances
+            # the same times at the Qwen3-30B-A3B, Phi-4-mini,
+            # Nemotron-4-340B (hd 192) and phi4-mini smoke (hd 40, f32)
+            # shapes, and at the shards' shapes of the TP=2 and EP=2
+            # instances
             MOE_PATH: moe_times.get(name),
             TRAIN_PATH: train_times.get(name),
+            NEMOTRON_PATH: nemotron_times.get(name),
+            PHI4_SMOKE_PATH: phi4_times.get(name),
             **{path: t.get(name) for path, t in tp_times.items()}})
     log(f"[total] phases {','.join(phases)} passed in "
         f"{time.monotonic() - t_start:.1f} s wall, the build included")

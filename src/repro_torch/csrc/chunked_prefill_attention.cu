@@ -24,21 +24,27 @@
 // batch and row strides, so they may be row views of larger buffers.  The
 // body is chosen by dtype and shape before launch:
 //
-// * bf16 queries at hd 128 on a bf16 pool (the serving path), or on an fp8
-//   or int8 pool: TMA + wgmma, warp-specialised in the flash-attention-3
-//   shape.  A CTA is three warpgroups.  The producer warpgroup gives up
-//   registers (setmaxnreg 24) and one of its threads loads the 128-row Q
-//   tile once, then K and V tiles of 128 keys into a 3-stage ring, each K
-//   and each V stage guarded by its own full and empty mbarriers.  The
-//   loads go through 4-D tensor maps (hd, heads, rows, B), so rows past Tq
-//   or S read as zero instead of as the next batch row (masked scores give
-//   P = 0, but 0 x NaN would still be NaN).  A 128-element row is two
-//   64-element boxes with 128-byte swizzle.  The two consumer warpgroups
+// * bf16 queries at hd 128 or 192 on a bf16 pool (the serving path), or on
+//   an fp8 or int8 pool: TMA + wgmma, warp-specialised in the
+//   flash-attention-3 shape.  A CTA is three warpgroups.  The producer
+//   warpgroup gives up registers (setmaxnreg 24) and one of its threads
+//   loads the 128-row Q tile once, then K and V tiles of BK keys into a
+//   3-stage ring, each K and each V stage guarded by its own full and
+//   empty mbarriers.  The loads go through 4-D tensor maps (hd, heads,
+//   rows, B), so rows past Tq or S read as zero instead of as the next
+//   batch row (masked scores give P = 0, but 0 x NaN would still be NaN).
+//   A row is hd/64 boxes of 64 elements with 128-byte swizzle.  BK is 128
+//   at hd 128; at hd 192 the Q tile alone is 48 KB and a 128-key K or V
+//   tile another 48 KB, so three stages would need 336 KB: hd 192 takes
+//   64-key tiles (24 KB), 192 KB with Q.  The two consumer warpgroups
 //   (setmaxnreg 240) own 64 query rows each.  S = Q.K^T is wgmma
-//   m64n128k16 with both operands read from swizzled shared memory; the
+//   m64nBKk16 with both operands read from swizzled shared memory; the
 //   online softmax runs on the f32 accumulators in registers (log2
 //   domain); P goes, rounded to bf16, as register A-fragments into wgmma
-//   for O += P.V, with V read transposed through its descriptor.  The grid
+//   m64n(hd)k16 for O += P.V, with V read transposed through its
+//   descriptor (the three 64-column pieces of a 192-wide row one
+//   leading-byte offset apart).  At hd 192 a consumer thread holds 96 f32
+//   of O, 32 of S and 16 registers of P.  The grid
 //   runs the q tiles with the most keys first.  Bound: operations (above),
 //   but the body is held by its softmax, not its products: with the
 //   softmax removed it runs in half the time.  So the softmax is lean: one
@@ -53,14 +59,16 @@
 //   once, which spills at the 168 registers ptxas allots a thread of a
 //   384-thread CTA.
 //   Quantized pools take the same pipeline with one more step: TMA loads
-//   the K and V codes (one byte each, rows past S zero) into a staging
-//   tile (the K/V ring has 2 stages here, for room), and warps 1-3 of the
+//   the K and V codes (one byte each, a whole row a box, rows past S
+//   zero) into a staging tile (the K/V ring has 2 stages here, for room),
+//   and warps 1-3 of the
 //   producer warpgroup (setmaxnreg 56, the consumers 224) convert them
 //   exactly to bf16 into the swizzled operand tile and copy the tile's
 //   per-key scales beside it.  The K scale multiplies the f32 scores and
 //   the V scale multiplies P before it is rounded to bf16, as in the
 //   mma.sync body below, so no dequantized copy is rounded.
-// * other bf16 queries (hd 32 and 64, f32 pools): tensor cores
+// * other bf16 queries at hd 32, 64 and 128 (f32 pools, bf16 pools that
+//   carry scales): tensor cores
 //   through mma.sync m16n8k16 (bf16 in, f32 accumulate), flash-attention-2
 //   style.  Four warps each own 16 of the tile's 64 query rows and keep
 //   their Q fragments, scores, online-softmax state and output accumulator
@@ -70,9 +78,11 @@
 //   before the P.V product (V), so no dequantized copy is rounded.  The
 //   probabilities enter the P.V product rounded to bf16, as in
 //   flash-attention-2.  Loads are not pipelined.
-// * f32 queries: f32 FMAs on tiles staged in shared memory as f32 (each
-//   thread owns a 4x4 block of the score tile and a 4 x hd/8 block of the
-//   output), so f32 callers get f32 arithmetic throughout.
+// * f32 queries, and bf16 queries at a head dim with no tensor-core
+//   instance (any other multiple of 8 up to 256, such as 40 or 256): f32
+//   FMAs on tiles staged in shared memory as f32 (each thread owns a 4x4
+//   block of the score tile and a 4 x hd/8 block of the output, at most 32
+//   columns), so f32 callers get f32 arithmetic throughout.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -84,7 +94,7 @@ namespace {
 constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 32;        // keys per loop step
 constexpr int THREADS = 128;  // 16 row groups x 8 column lanes
-constexpr int MAX_K = 16;     // hd / 8, so hd <= 128
+constexpr int MAX_K = 32;     // hd / 8, so hd <= 256
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -103,7 +113,8 @@ size_t smem_bytes(int hd) {
   return sizeof(float) * (BQ * ld + BK * ld + BK * hd + BQ * (BK + 1));
 }
 
-template <typename TQ, typename TKV>
+// MAXK: the output block a thread holds, hd / 8 columns at most
+template <typename TQ, typename TKV, int MAXK>
 __global__ void __launch_bounds__(THREADS)
 chunked_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                        const TKV* __restrict__ v, const int* __restrict__ offsets,
@@ -130,13 +141,13 @@ chunked_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     q_s[r * ld + d] = t < Tq ? to_f(q[b * sqb + t * sqt + (size_t)h * hd + d]) : 0.f;
   }
 
-  float m[4], l[4], acc[4][MAX_K];
+  float m[4], l[4], acc[4][MAXK];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < MAX_K; ++kk) acc[i][kk] = 0.f;
+    for (int kk = 0; kk < MAXK; ++kk) acc[i][kk] = 0.f;
   }
 
   const int q_last = min(q0 + BQ, Tq) - 1;
@@ -206,7 +217,7 @@ chunked_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       l[i] = l[i] * alpha + sum;
       m[i] = mx;
 #pragma unroll
-      for (int kk = 0; kk < MAX_K; ++kk) acc[i][kk] *= alpha;
+      for (int kk = 0; kk < MAXK; ++kk) acc[i][kk] *= alpha;
     }
     __syncthreads();
 
@@ -215,7 +226,7 @@ chunked_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pa[i] = p_s[(ty * 4 + i) * (BK + 1) + c];
 #pragma unroll
-      for (int kk = 0; kk < MAX_K; ++kk) {
+      for (int kk = 0; kk < MAXK; ++kk) {
         if (kk < nk) {
           const float vv = v_s[c * hd + tx + 8 * kk];
 #pragma unroll
@@ -232,7 +243,7 @@ chunked_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
     TQ* orow = out + (((size_t)b * Tq + t) * H + h) * hd;
 #pragma unroll
-    for (int kk = 0; kk < MAX_K; ++kk)
+    for (int kk = 0; kk < MAXK; ++kk)
       if (kk < nk) orow[tx + 8 * kk] = from_f<TQ>(acc[i][kk] * inv_l);
   }
 }
@@ -454,28 +465,38 @@ chunked_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __res
 }
 
 // ---------------------------------------------------------------------------
-// bf16 queries on a bf16 pool at hd 128: TMA + wgmma, warp-specialised
+// bf16 queries at hd 128 or 192 on a bf16, fp8 or int8 pool: TMA + wgmma,
+// warp-specialised
 // ---------------------------------------------------------------------------
 namespace wg {
 
 constexpr int BQ = 128;              // query rows per CTA, 64 per consumer warpgroup
-constexpr int BK = 128;              // keys per K/V tile
-constexpr int HD = 128;
 constexpr int THREADS = 384;         // producer warpgroup + two consumer warpgroups
 constexpr int BOX = 64;              // elements in one 128-byte swizzled box row
-constexpr int Q_HALF = BQ * 128;     // bytes of one head-dim half of the Q tile
-constexpr int KV_HALF = BK * 128;    // bytes of one head-dim half of a K or V tile
-constexpr int Q_BYTES = 2 * Q_HALF;
-constexpr int KV_BYTES = 2 * KV_HALF;
-constexpr int CODE_BYTES = BK * HD;  // one staged K or V tile of 1-byte codes
-// dynamic shared memory of a CTA with an nst-stage K/V ring (+1024: base
-// alignment); quantized pools add the two staging tiles and the per-key
-// scales
-constexpr size_t smem_bytes(int nst, bool quant) {
-  return Q_BYTES + 2 * nst * KV_BYTES + 1024 +
-         (quant ? 2 * CODE_BYTES + 2 * nst * BK * sizeof(float) : 0);
-}
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The tiles of one head dim: a row of HD elements is NP pieces of 64
+// (128 bytes, swizzled), K/V tiles hold BK keys.  hd 128 takes 128-key
+// tiles; hd 192 takes 64-key tiles, so that its Q tile (48 KB) and three
+// stages of K and V (24 KB each) fit the 227 KB a CTA may hold.
+template <int HD_, int BK_>
+struct Tile {
+  static constexpr int HD = HD_;
+  static constexpr int BK = BK_;
+  static constexpr int NP = HD / BOX;          // 128-byte pieces of a row
+  static constexpr int Q_PIECE = BQ * 128;     // bytes of one piece of the Q tile
+  static constexpr int KV_PIECE = BK * 128;    // bytes of one piece of a K or V tile
+  static constexpr int Q_BYTES = NP * Q_PIECE;
+  static constexpr int KV_BYTES = NP * KV_PIECE;
+  static constexpr int CODE_BYTES = BK * HD;   // one staged K or V tile of 1-byte codes
+  // dynamic shared memory of a CTA with an nst-stage K/V ring (+1024:
+  // base alignment); quantized pools add the two staging tiles and the
+  // per-key scales
+  static constexpr size_t smem_bytes(int nst, bool quant) {
+    return Q_BYTES + 2 * nst * KV_BYTES + 1024 +
+           (quant ? 2 * CODE_BYTES + 2 * nst * BK * sizeof(float) : 0);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -531,22 +552,49 @@ __device__ __forceinline__ void wg_wait() {
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma and its wait
-__device__ __forceinline__ void pin(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // keeps the registers of P, which a register-A wgmma reads while it runs,
 // from being reused before its wait
-__device__ __forceinline__ void pin(uint32_t (&a)[BK / 16][4]) {
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < BK / 16; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// d (+)= A (64x16, shared memory) * B (16x128, shared memory, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+// d (+)= A (64x16, shared memory) * B (16xN, shared memory, K-major); N is
+// the K/V tile's keys (64 or 128)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d);
+// d += A (64x16, registers) * B (16xN, shared memory, MN-major); N is the
+// head dim (128 or 192)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -565,8 +613,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d += A (64x16, registers) * B (16x128, shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -582,6 +630,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -602,8 +676,9 @@ __device__ __forceinline__ void codes_to_bf16(const uint4& raw, uint4& lo, uint4
 // TKV is the pool's element type: bf16 tiles go by TMA straight into the
 // swizzled operand tiles; fp8 or int8 codes go by TMA into a staging tile
 // and warps 1-3 of the producer warpgroup convert them into the operand
-// tile (and copy the tile's per-key scales beside it).
-template <typename TKV, int NSTG>
+// tile (and copy the tile's per-key scales beside it).  T is the Tile of
+// the head dim.
+template <typename TKV, int NSTG, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -612,14 +687,17 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const float* __restrict__ vs, __nv_bfloat16* __restrict__ out,
                              int Tq, int S, int H, int KV, float scale_log2) {
   constexpr bool QUANT = sizeof(TKV) == 1;
+  constexpr int HD = T::HD, BK = T::BK, NP = T::NP;
+  constexpr int Q_PIECE = T::Q_PIECE, KV_PIECE = T::KV_PIECE;
+  constexpr int Q_BYTES = T::Q_BYTES, KV_BYTES = T::KV_BYTES, CODE_BYTES = T::CODE_BYTES;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 4 * NSTG + 4];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* q_s = smem;                      // [2 halves][BQ rows][128 B]
-  unsigned char* k_s = smem + Q_BYTES;            // [NSTG][2 halves][BK rows][128 B]
+  unsigned char* q_s = smem;                      // [NP pieces][BQ rows][128 B]
+  unsigned char* k_s = smem + Q_BYTES;            // [NSTG][NP pieces][BK rows][128 B]
   unsigned char* v_s = k_s + NSTG * KV_BYTES;
-  unsigned char* kc_s = v_s + NSTG * KV_BYTES;     // quantized: staged codes [BK][128]
+  unsigned char* kc_s = v_s + NSTG * KV_BYTES;     // quantized: staged codes [BK][HD]
   unsigned char* vc_s = kc_s + CODE_BYTES;
   float* ksc_s = reinterpret_cast<float*>(vc_s + CODE_BYTES);   // [NSTG][BK] scales
   float* vsc_s = ksc_s + NSTG * BK;
@@ -667,8 +745,8 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, Q_BYTES);
-      tma_load(q_s, &tq, q_full, 0, h, q0, b);
-      tma_load(q_s + Q_HALF, &tq, q_full, BOX, h, q0, b);
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc) tma_load(q_s + pc * Q_PIECE, &tq, q_full, pc * BOX, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % NSTG, ph = (it / NSTG) & 1, k0 = it * BK;
         if constexpr (QUANT) {
@@ -683,12 +761,14 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           unsigned char* vd = v_s + st * KV_BYTES;
           mbar_wait(&k_empty[st], ph ^ 1);
           mbar_expect_tx(&k_full[st], KV_BYTES);
-          tma_load(kd, &tk, &k_full[st], 0, kvh, k0, b);
-          tma_load(kd + KV_HALF, &tk, &k_full[st], BOX, kvh, k0, b);
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc)
+            tma_load(kd + pc * KV_PIECE, &tk, &k_full[st], pc * BOX, kvh, k0, b);
           mbar_wait(&v_empty[st], ph ^ 1);
           mbar_expect_tx(&v_full[st], KV_BYTES);
-          tma_load(vd, &tv, &v_full[st], 0, kvh, k0, b);
-          tma_load(vd + KV_HALF, &tv, &v_full[st], BOX, kvh, k0, b);
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc)
+            tma_load(vd + pc * KV_PIECE, &tv, &v_full[st], pc * BOX, kvh, k0, b);
         }
       }
     } else if constexpr (QUANT) {
@@ -701,13 +781,14 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int ph = (it / NSTG) & 1, k0 = it * BK;
         mbar_wait(code_full, it & 1);
         mbar_wait(op_empty, ph ^ 1);
-        for (int u = ct; u < BK * 8; u += 96) {
-          const int r = u >> 3, ch = u & 7;   // key row; 16-code chunk of the row
+        constexpr int CPR = HD / 16;   // 16-code chunks of a row
+        for (int u = ct; u < BK * CPR; u += 96) {
+          const int r = u / CPR, ch = u - r * CPR;   // key row; 16-code chunk of the row
           uint4 lo, hi;
-          codes_to_bf16<TKV>(*reinterpret_cast<const uint4*>(codes + r * 128 + ch * 16), lo, hi);
+          codes_to_bf16<TKV>(*reinterpret_cast<const uint4*>(codes + r * HD + ch * 16), lo, hi);
           // elements 16 ch .. 16 ch + 15: 16-byte chunks 2 (ch & 3) and
-          // 2 (ch & 3) + 1 of head-dim half ch >> 2, 128-byte swizzled
-          unsigned char* row = op + (ch >> 2) * KV_HALF + r * 128;
+          // 2 (ch & 3) + 1 of head-dim piece ch >> 2, 128-byte swizzled
+          unsigned char* row = op + (ch >> 2) * KV_PIECE + r * 128;
           const int c0 = (ch & 3) * 2;
           *reinterpret_cast<uint4*>(row + ((c0 ^ (r & 7)) << 4)) = lo;
           *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ (r & 7)) << 4)) = hi;
@@ -742,20 +823,20 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qpos0 = off + q0 + r0, qpos1 = qpos0 + 8;
     const int qpos_min = off + q0 + c * 64;             // first row of this warpgroup
 
-    float o[64], sc[64];
+    float o[HD / 2], sc[BK / 2];
     uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
     const uint32_t qa = smem_u32(q_s) + c * 64 * 128;
 
-    // S = Q K^T of tile `it` into sc: 8 k-steps of 16 over two swizzled halves
+    // S = Q K^T of tile `it` into sc: HD/16 k-steps of 16 over NP swizzled pieces
     auto issue_s = [&](int it) {
       const uint32_t ka = smem_u32(k_s + (it % NSTG) * KV_BYTES);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss(sc, desc_sw128(qa + (kk >> 2) * Q_HALF + (kk & 3) * 32, 16, 1024),
-                 desc_sw128(ka + (kk >> 2) * KV_HALF + (kk & 3) * 32, 16, 1024), kk > 0);
+        wgmma_ss<BK>(sc, desc_sw128(qa + (kk >> 2) * Q_PIECE + (kk & 3) * 32, 16, 1024),
+                     desc_sw128(ka + (kk >> 2) * KV_PIECE + (kk & 3) * 32, 16, 1024), kk > 0);
       wg_commit();
     };
     // O += P V of tile `it`: P from registers, V transposed through the descriptor
@@ -763,7 +844,7 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t va = smem_u32(v_s + (it % NSTG) * KV_BYTES);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs(o, pa[kk], desc_sw128(va + kk * 16 * 128, KV_HALF, 1024));
+        wgmma_rs<HD>(o, pa[kk], desc_sw128(va + kk * 16 * 128, KV_PIECE, 1024));
       wg_commit();
     };
     // online softmax of tile `it` in the log2 domain (masked scores -1e30;
@@ -776,7 +857,7 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const bool edge = k0 + BK - 1 > qpos_min || k0 + BK > kv_end;
       float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = j * 8 + tig * 2 + e, key = k0 + col;
@@ -806,7 +887,7 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float s0 = mx0 <= 0.5f * NEG_INF ? 0.f : mx0;
       const float s1 = mx1 <= 0.5f * NEG_INF ? 0.f : mx1;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = ex2(sc[j * 4 + e] - (e < 2 ? s0 : s1));
@@ -818,7 +899,7 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     auto pack_p = [&](int it) {
       const float* vss = vsc_s + (it % NSTG) * BK;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
         float f0 = 1.f, f1 = 1.f;
         if constexpr (QUANT) {
           f0 = vss[j * 8 + tig * 2];
@@ -830,7 +911,7 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     };
     auto rescale_o = [&](float a0, float a1) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < HD / 8; ++j) {
         o[j * 4] *= a0;
         o[j * 4 + 1] *= a0;
         o[j * 4 + 2] *= a1;
@@ -875,7 +956,7 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
     const int t0 = q0 + r0, t1 = t0 + 8;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       const int col = j * 8 + tig * 2;
       if (t0 < Tq)
         *reinterpret_cast<uint32_t*>(out + (((size_t)b * Tq + t0) * H + h) * HD + col) =
@@ -922,10 +1003,10 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D map (hd, heads, rows, B) over a tensor of `esize`-byte elements
-// whose box is one 128-byte row piece x 1 head x box_rows rows x 1 batch
-// row: 64 bf16 elements with 128-byte swizzle, or 128 one-byte codes
-// unswizzled.  Rows past `rows` read as zero, so a tile never sees the
-// next batch row's data.
+// whose box is one row piece x 1 head x box_rows rows x 1 batch row: 64
+// bf16 elements (128 bytes) with 128-byte swizzle, or a whole row of hd
+// one-byte codes unswizzled.  Rows past `rows` read as zero, so a tile
+// never sees the next batch row's data.
 cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int heads,
                      int rows, int B, long long s_row, long long s_b, int box_rows) {
   EncodeTiledFn enc = encode_tiled();
@@ -934,7 +1015,7 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int 
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * esize, (cuuint64_t)s_row * esize,
                                  (cuuint64_t)s_b * esize};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(codes ? hd : wg::BOX), 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUresult r = enc(map, codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                    4, const_cast<void*>(base), dims, strides, box, estr,
@@ -944,20 +1025,21 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename TKV>
+template <typename TKV, typename T>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* offsets,
                          const void* ks, const void* vs, void* out, int B, int Tq, int S,
                          int H, int KV, long long sqb, long long sqt, long long skb,
                          long long sks, float scale, cudaStream_t stream) {
   constexpr int esize = (int)sizeof(TKV);
   constexpr int nst = esize == 1 ? 2 : 3;   // quantized: room for the staging tiles
-  constexpr size_t smem = wg::smem_bytes(nst, esize == 1);
+  constexpr size_t smem = T::smem_bytes(nst, esize == 1);
+  static_assert(smem <= 232448, "a CTA holds at most 227 KB of shared memory");
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, 2, wg::HD, H, Tq, B, sqt, sqb, wg::BQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, esize, wg::HD, KV, S, B, sks, skb, wg::BK);
-  if (err == cudaSuccess) err = make_map(&tv, v, esize, wg::HD, KV, S, B, sks, skb, wg::BK);
+  cudaError_t err = make_map(&tq, q, 2, T::HD, H, Tq, B, sqt, sqb, wg::BQ);
+  if (err == cudaSuccess) err = make_map(&tk, k, esize, T::HD, KV, S, B, sks, skb, T::BK);
+  if (err == cudaSuccess) err = make_map(&tv, v, esize, T::HD, KV, S, B, sks, skb, T::BK);
   if (err != cudaSuccess) return err;
-  auto kern = wg::chunked_prefill_wgmma_kernel<TKV, nst>;
+  auto kern = wg::chunked_prefill_wgmma_kernel<TKV, nst, T>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(H, B, (Tq + wg::BQ - 1) / wg::BQ);
@@ -989,6 +1071,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// The wgmma tiles of each head dim that has them (see wg::Tile).
+template <typename TKV>
+cudaError_t launch_wgmma_hd(int hd, const void* q, const void* k, const void* v,
+                            const void* offsets, const void* ks, const void* vs, void* out,
+                            int B, int Tq, int S, int H, int KV, long long sqb, long long sqt,
+                            long long skb, long long sks, float scale, cudaStream_t stream) {
+  switch (hd) {
+    case 128: return launch_wgmma<TKV, wg::Tile<128, 128>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+    case 192: return launch_wgmma<TKV, wg::Tile<192, 64>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+    default: return cudaErrorInvalidValue;   // no instance: never read a row as another width
+  }
+}
+
 template <typename TKV>
 cudaError_t launch_mma_hd(int hd, const void* q, const void* k, const void* v,
                           const void* offsets, const void* ks, const void* vs, void* out,
@@ -997,17 +1092,18 @@ cudaError_t launch_mma_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 32: return launch_mma<32, TKV>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
     case 64: return launch_mma<64, TKV>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-    default: return launch_mma<128, TKV>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+    case 128: return launch_mma<128, TKV>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+    default: return cudaErrorInvalidValue;   // no instance: never read a row as another width
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* offsets,
-                   const void* ks, const void* vs, void* out, int B, int Tq, int S,
-                   int H, int KV, int hd, long long sqb, long long sqt, long long skb,
-                   long long sks, float scale, cudaStream_t stream) {
+template <typename TQ, typename TKV, int MAXK>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, const void* offsets,
+                       const void* ks, const void* vs, void* out, int B, int Tq, int S,
+                       int H, int KV, int hd, long long sqb, long long sqt, long long skb,
+                       long long sks, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
-  auto kern = chunked_prefill_kernel<TQ, TKV>;
+  auto kern = chunked_prefill_kernel<TQ, TKV, MAXK>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1022,24 +1118,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* offs
   return cudaGetLastError();
 }
 
+// hd <= 128 keeps the narrower output block (and its registers); wider
+// rows take up to MAX_K
+template <typename TQ, typename TKV>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* offsets,
+                   const void* ks, const void* vs, void* out, int B, int Tq, int S,
+                   int H, int KV, int hd, long long sqb, long long sqt, long long skb,
+                   long long sks, float scale, cudaStream_t stream) {
+  if (hd <= 128)
+    return launch_fma<TQ, TKV, 16>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+  return launch_fma<TQ, TKV, MAX_K>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+}
+
 // Which body a call takes is decided here, by dtype and shape, before any
-// launch: bf16 queries at hd 128 on a bf16 pool (the serving path) or on
-// an fp8 or int8 pool take TMA + wgmma; other bf16 queries (hd 32 and 64,
-// f32 pools, bf16 pools that carry scales) take mma.sync; f32 queries
-// keep f32 FMAs.
+// launch: bf16 queries at hd 128 or 192 on a bf16 pool (the serving path)
+// or on an fp8 or int8 pool take TMA + wgmma; other bf16 queries at hd
+// 32, 64 and 128 (f32 pools, bf16 pools that carry scales) take mma.sync;
+// f32 queries, and bf16 queries at every other head dim, take f32 FMAs.
 template <typename TQ>
 cudaError_t launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
                       const void* offsets, const void* ks, const void* vs, void* out,
                       int B, int Tq, int S, int H, int KV, int hd, long long sqb,
                       long long sqt, long long skb, long long sks, float scale,
                       cudaStream_t stream, int* body) {
-  if (sizeof(TQ) == 2 && hd == wg::HD && (kv_dtype == 2 || kv_dtype == 3 ||
-                                           (kv_dtype == 1 && ks == nullptr))) {
+  if (sizeof(TQ) == 2 && (hd == 128 || hd == 192) &&
+      (kv_dtype == 2 || kv_dtype == 3 || (kv_dtype == 1 && ks == nullptr))) {
     *body = BODY_WGMMA;
     switch (kv_dtype) {
-      case 1: return launch_wgmma<__nv_bfloat16>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 2: return launch_wgmma<__nv_fp8_e4m3>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 3: return launch_wgmma<int8_t>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+      case 1: return launch_wgmma_hd<__nv_bfloat16>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+      case 2: return launch_wgmma_hd<__nv_fp8_e4m3>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+      case 3: return launch_wgmma_hd<int8_t>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1065,6 +1173,13 @@ cudaError_t launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The head layouts this kernel takes (repro_torch/kernels/shapes.py holds
+// the same rule): hd a multiple of 8 up to 8 * MAX_K, and a whole number
+// of query heads for each KV head.
+static bool supported(int hd, int H, int KV) {
+  return hd % 8 == 0 && hd >= 8 && hd <= 8 * MAX_K && KV > 0 && H > 0 && H % KV == 0;
+}
+
 // dtype codes: 0 float32, 1 bfloat16, 2 float8_e4m3fn, 3 int8.
 // q (B,Tq,H,hd) with strides (sqb, sqt, hd, 1); k/v (B,S,KV,hd) with
 // strides (skb, sks, hd, 1), in elements, so q/k/v may be row views of
@@ -1079,7 +1194,7 @@ extern "C" int chunked_prefill_attention(const void* q, const void* k, const voi
                                          long long sqt, long long skb, long long sks,
                                          int q_dtype, int kv_dtype, float scale,
                                          int* body, void* stream) {
-  if (KV <= 0 || H % KV != 0 || hd % 8 != 0 || hd > 8 * MAX_K || B <= 0 || Tq <= 0 || S <= 0)
+  if (!supported(hd, H, KV) || B <= 0 || Tq <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -32,9 +32,15 @@
 //   warps then streams its own sub-tiles of the span (warp w takes
 //   sub-tiles w, w+4, ...) into its own ring of NSTAGE shared-memory
 //   stages with cp.async, NSTAGE-1 sub-tiles ahead.  A token row is held
-//   by LPT lanes, 8 elements each (one 16-byte chunk in bf16), and each
-//   lane group takes TPL tokens of a sub-tile.  A lane copies its own
-//   chunks and reads back only those, so the loop has no barrier at all.
+//   by LPT lanes, 8 elements each (one 16-byte chunk in bf16): hd/8
+//   rounded up to a power of two, 4 to 32, so one warp holds a row of up
+//   to 256 elements; lanes past hd (3 of 8 at hd 40, 8 of 32 at hd 192)
+//   copy nothing and hold zeros.  Each lane group takes TPL tokens of a
+//   sub-tile.  A lane copies its own chunks and reads back only those, so
+//   the loop has no barrier at all.  With hd % 8 == 0 a lane's chunk
+//   (32, 16 or 8 bytes for f32, bf16 or one-byte codes) starts at a
+//   multiple of its own size within the row and within the pool, and
+//   ends inside the row, so every head dim takes the same copies.
 //   Scores and the online softmax run in f32 on CUDA cores (tensor cores
 //   buy nothing at 4*hd flops per token and head), in the log2 domain: q
 //   is pre-scaled by scale*log2(e), so each probability is one MUFU exp2.
@@ -63,6 +69,7 @@ constexpr int NSTAGE = 3;          // sub-tiles each warp keeps in flight
 constexpr int TPL = 4;             // tokens a lane group takes per sub-tile
 constexpr int SPLIT_TOKENS = 256;  // target span; rounded to whole pages
 constexpr int EPL = 8;             // head-dim elements a lane holds
+constexpr int MAX_HD = 256;        // a whole warp of 8-element chunks
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -155,18 +162,21 @@ __device__ __forceinline__ void zero_chunk(unsigned char* dst) {
   }
 }
 
-// Launch geometry shared by host and device.
+// Launch geometry shared by host and device.  WIDE (hd > 128): a row takes
+// the whole warp; a narrower row takes 4, 8 or 16 lanes, a choice the
+// compiler sees stop at 16.
 struct Geom {
-  int lpt;         // lanes per token row: hd/8 rounded up to a power of two
+  int lpt;         // lanes per token row: hd/8 rounded up to a power of two, 4..32
   int tw;          // tokens of one warp sub-tile: (32 / lpt) lane groups x TPL
   int split;       // tokens per span, a whole number of pages
   int span_pages;  // pages per span
 };
 
+template <bool WIDE>
 __host__ __device__ inline Geom geom(int hd, int page) {
   Geom g;
   const int chunks = hd / EPL;
-  g.lpt = chunks <= 4 ? 4 : chunks <= 8 ? 8 : 16;
+  g.lpt = WIDE ? 32 : chunks <= 4 ? 4 : chunks <= 8 ? 8 : 16;
   g.tw = (32 / g.lpt) * TPL;
   g.span_pages = SPLIT_TOKENS >= page ? SPLIT_TOKENS / page : 1;
   g.split = g.span_pages * page;
@@ -183,7 +193,7 @@ __host__ __device__ inline int stage_bytes(bool quant) {
 
 template <typename TKV, int GM>
 size_t smem_bytes(int hd, int page, bool quant) {
-  const Geom g = geom(hd, page);
+  const Geom g = geom<false>(hd, page);   // span_pages: the same at any width
   const size_t ring = (size_t)NW * NSTAGE * stage_bytes<TKV>(quant);
   const size_t merge = sizeof(float) * (2 * NW * GM + NW * GM * hd);
   return (ring > merge ? ring : merge) + sizeof(int) * g.span_pages;
@@ -194,8 +204,13 @@ size_t smem_bytes(int hd, int page, bool quant) {
 // and so are the partial maxima m.  The launch bound holds a thread to 168
 // registers, so three CTAs (12 warps) share an SM; left free, ptxas takes
 // ~190 and only two fit.  Groups of 8 heads need ~245 and get two CTAs.
-template <typename TQ, typename TKV, int GM>
-__global__ void __launch_bounds__(THREADS, GM > 5 ? 2 : 3)
+// WIDE: a row takes the whole warp (hd > 128), so a score sums over 32
+// lanes, one shuffle level more than the narrower rows pay for, and a
+// warp instruction serves one token where a narrower row serves two or
+// more; such rows take groups of at most 4 heads, whose ~110 registers
+// let four CTAs (16 warps) share an SM to hide the shuffles' latency.
+template <typename TQ, typename TKV, int GM, bool WIDE>
+__global__ void __launch_bounds__(THREADS, GM > 5 ? 2 : GM == 4 ? 4 : 3)
 paged_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                           const TKV* __restrict__ vp, const int* __restrict__ tables,
                           const int* __restrict__ lengths, const float* __restrict__ ks,
@@ -204,7 +219,7 @@ paged_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                           float* __restrict__ part_acc, int H, int KV, int hd, int page,
                           int page_shift, int n_pp, int n_splits, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Geom gm = geom(hd, page);
+  const Geom gm = geom<WIDE>(hd, page);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, kvh = blockIdx.y;
   const int qpk = H / KV, ngz = (qpk + GM - 1) / GM;
@@ -325,7 +340,7 @@ paged_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
         // the group's width add nothing, so the TPL x GM reductions are
         // straight-line code that the scheduler can interleave
 #pragma unroll
-        for (int o = 8; o > 0; o >>= 1) {
+        for (int o = WIDE ? 16 : 8; o > 0; o >>= 1) {
           const float x = __shfl_xor_sync(0xffffffffu, part, o);
           part += o < lpt ? x : 0.f;
         }
@@ -450,18 +465,18 @@ paged_decode_merge_kernel(const float* __restrict__ part_m, const float* __restr
   }
 }
 
-template <typename TQ, typename TKV, int GM>
+template <typename TQ, typename TKV, int GM, bool WIDE>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* tables,
                    const void* lengths, const void* ks, const void* vs, void* out,
                    void* part_m, void* part_l, void* part_acc, int B, int H, int KV,
                    int hd, int page, int n_pp, float scale, cudaStream_t stream) {
-  const Geom g = geom(hd, page);
+  const Geom g = geom<WIDE>(hd, page);
   const int n_splits = (n_pp * page + g.split - 1) / g.split;
   const size_t smem = smem_bytes<TKV, GM>(hd, page, ks != nullptr);
   int page_shift = -1;   // log2(page) when page is a power of two
   for (int s = 0; s < 31; ++s)
     if ((1 << s) == page) page_shift = s;
-  auto kern = paged_decode_split_kernel<TQ, TKV, GM>;
+  auto kern = paged_decode_split_kernel<TQ, TKV, GM, WIDE>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -486,18 +501,33 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* ta
 }
 
 // qpk <= 2 -> 2 heads a CTA, <= 5 -> 5 (Qwen2.5-14B), else 8 (larger groups
-// take a third grid axis), so register arrays fit the group.
-template <typename TQ, typename TKV>
+// take a third grid axis), so register arrays fit the group; a WIDE row
+// takes groups of 4 past 2 (Nemotron-4-340B's 12: three groups).
+template <typename TQ, typename TKV, bool WIDE>
 cudaError_t launch_gm(const void* q, const void* kp, const void* vp, const void* tables,
                       const void* lengths, const void* ks, const void* vs, void* out,
                       void* pm, void* pl, void* pa, int B, int H, int KV, int hd,
                       int page, int n_pp, float scale, cudaStream_t stream) {
   const int qpk = H / KV;
   if (qpk <= 2)
-    return launch<TQ, TKV, 2>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
-  if (qpk <= 5)
-    return launch<TQ, TKV, 5>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
-  return launch<TQ, TKV, 8>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+    return launch<TQ, TKV, 2, WIDE>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+  if constexpr (WIDE) {
+    return launch<TQ, TKV, 4, WIDE>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+  } else {
+    if (qpk <= 5)
+      return launch<TQ, TKV, 5, WIDE>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+    return launch<TQ, TKV, 8, WIDE>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+  }
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_wide(const void* q, const void* kp, const void* vp, const void* tables,
+                        const void* lengths, const void* ks, const void* vs, void* out,
+                        void* pm, void* pl, void* pa, int B, int H, int KV, int hd,
+                        int page, int n_pp, float scale, cudaStream_t stream) {
+  if (hd > 16 * EPL)
+    return launch_gm<TQ, TKV, true>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+  return launch_gm<TQ, TKV, false>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
 }
 
 template <typename TQ>
@@ -507,20 +537,27 @@ cudaError_t launch_kv(int kv_dtype, const void* q, const void* kp, const void* v
                       int H, int KV, int hd, int page, int n_pp, float scale,
                       cudaStream_t stream) {
   switch (kv_dtype) {
-    case 0: return launch_gm<TQ, float>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
-    case 1: return launch_gm<TQ, __nv_bfloat16>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
-    case 2: return launch_gm<TQ, __nv_fp8_e4m3>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
-    case 3: return launch_gm<TQ, int8_t>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+    case 0: return launch_wide<TQ, float>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+    case 1: return launch_wide<TQ, __nv_bfloat16>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+    case 2: return launch_wide<TQ, __nv_fp8_e4m3>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
+    case 3: return launch_wide<TQ, int8_t>(q, kp, vp, tables, lengths, ks, vs, out, pm, pl, pa, B, H, KV, hd, page, n_pp, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// The head layouts this kernel takes (repro_torch/kernels/shapes.py holds
+// the same rule): hd a multiple of 8 up to a warp of 8-element chunks, and
+// a whole number of query heads for each KV head.
+static bool supported(int hd, int H, int KV) {
+  return hd % 8 == 0 && hd >= 8 && hd <= MAX_HD && KV > 0 && H > 0 && H % KV == 0;
+}
+
 // The number of spans a sequence of n_pp pages is cut into: the partials'
 // middle dimension, which the caller allocates.
 extern "C" int paged_decode_attention_splits(int hd, int page, int n_pp) {
-  const Geom g = geom(hd, page);
+  const Geom g = geom<false>(hd, page);   // spans: the same at any width
   return (n_pp * page + g.split - 1) / g.split;
 }
 
@@ -537,7 +574,7 @@ extern "C" int paged_decode_attention(const void* q, const void* kp, const void*
                                       int B, int H, int KV, int hd, int page, int n_pp,
                                       int q_dtype, int kv_dtype, float scale,
                                       void* stream) {
-  if (KV <= 0 || H % KV != 0 || hd % 32 != 0 || hd > 128 || B <= 0 || n_pp <= 0 || page <= 0)
+  if (!supported(hd, H, KV) || B <= 0 || n_pp <= 0 || page <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -5,13 +5,15 @@ It replaces the Pallas TPU kernel
 ``repro/kernels/chunked_prefill_attention.py::chunked_prefill_attention``
 together with its padding wrapper ``ops.chunked_prefill_attention_op``:
 the CUDA kernel masks ragged Tq and S edges itself, so nothing is
-padded.  The kernel picks its body by dtype and shape before it
-launches: bf16 queries at hd 128 on a bf16 pool (the serving path) or
-an fp8 or int8 pool run a TMA + ``wgmma`` body, other bf16 queries (hd
-32 and 64, f32 pools) run ``mma.sync``, and f32 queries keep f32
-arithmetic throughout.  The wrapper checks its inputs, allocates the output, and
-launches on PyTorch's current stream; it raises on anything the kernel
-does not take.  q, k and v may be row views of larger buffers (their
+padded.  It takes every head layout of ``kernels.shapes`` (hd a
+multiple of 8 up to 256).  The kernel picks its body by dtype and shape
+before it launches: bf16 queries at hd 128 or 192 on a bf16 pool (the
+serving path) or an fp8 or int8 pool run a TMA + ``wgmma`` body, other
+bf16 queries at hd 32, 64 and 128 (f32 pools) run ``mma.sync``, and f32
+queries, and bf16 queries at any other head dim, take f32 FMAs.  The
+wrapper checks its inputs, allocates the output, and launches on
+PyTorch's current stream; it raises on anything the kernel does not
+take.  q, k and v may be row views of larger buffers (their
 last two dimensions contiguous): the kernel reads through their strides
 and never past Tq or S.  ``launches`` counts the launches it made and
 ``body_launches`` splits them by the body the kernel reported.
@@ -24,7 +26,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 
 #: kernel launches made by this wrapper (tests and chip_smoke.py reset it)
 launches = 0
@@ -66,17 +68,17 @@ def chunked_prefill_attention(q, k, v, offsets, k_scales=None,
     f32|bf16|fp8-e4m3|int8; offsets: (B,) int; k/v_scales: optional
     (B,S) f32 per-token dequant scales -> (B,Tq,H,hd) in q's dtype."""
     global launches
-    if q.device.type != "cuda":
-        raise ValueError(f"chunked_prefill_attention launches a CUDA "
-                         f"kernel; got a tensor on {q.device}")
     B, Tq, H, hd = q.shape
     Bk, S, KV, hd_k = k.shape
     if v.shape != k.shape or v.dtype != k.dtype:
         raise ValueError("k and v differ in shape or dtype")
-    if Bk != B or hd_k != hd or H % KV or hd % 8 or hd > 128:
-        raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} (hd % 8 == 0, hd <= 128, "
-                         f"H % KV == 0)")
+    if Bk != B or hd_k != hd:
+        raise ValueError(f"q={tuple(q.shape)} and k={tuple(k.shape)} "
+                         f"differ in batch or head dim")
+    shapes.check(hd, H, KV, "chunked_prefill_attention")
+    if q.device.type != "cuda":
+        raise ValueError(f"chunked_prefill_attention launches a CUDA "
+                         f"kernel; got a tensor on {q.device}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales or neither")
     off = offsets.to(device=q.device, dtype=torch.int32).contiguous()

@@ -8,7 +8,10 @@ The kernel is split-KV: a first pass computes partial softmax states
 The wrapper checks its inputs, allocates the output and the f32 partials
 (their span count comes from the table's width, never from the lengths,
 so nothing is read back from the card), and launches on PyTorch's current
-stream; it raises on anything the kernel does not take.  ``launches``
+stream; it raises on anything the kernel does not take, and it takes
+every head layout of ``kernels.shapes`` (hd a multiple of 8 up to 256:
+a row of up to 128 shares a warp with others, a wider row takes the
+whole warp).  ``launches``
 counts wrapper calls that launched the kernel: one per call, whether the
 call ran one pass (a single span) or both.
 """
@@ -20,7 +23,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, shapes
 
 #: kernel calls made by this wrapper, one per call (split and merge
 #: passes together); tests and chip_smoke.py reset it
@@ -49,17 +52,17 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     int; k/v_scales: optional (n_pages,page) f32 per-token dequant scales
     -> (B,H,hd) in q's dtype."""
     global launches
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention launches a CUDA kernel; "
-                         f"got a tensor on {q.device}")
     B, H, hd = q.shape
     n_pages, page, KV, hd_k = k_pages.shape
     if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
         raise ValueError("k_pages and v_pages differ in shape or dtype")
-    if hd_k != hd or H % KV or hd % 32 or hd > 128:
-        raise ValueError(f"unsupported shapes q={tuple(q.shape)} "
-                         f"pages={tuple(k_pages.shape)} (hd % 32 == 0, "
-                         f"hd <= 128, H % KV == 0)")
+    if hd_k != hd:
+        raise ValueError(f"q={tuple(q.shape)} and pages="
+                         f"{tuple(k_pages.shape)} differ in head dim")
+    shapes.check(hd, H, KV, "paged_decode_attention")
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention launches a CUDA kernel; "
+                         f"got a tensor on {q.device}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales or neither")
     tensors = [q, k_pages, v_pages]

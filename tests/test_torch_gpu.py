@@ -27,15 +27,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("H,KV,hd", [
+    (40, 8, 128),     # Qwen2.5-14B (qpk 5)
+    (12, 2, 40),      # phi4-mini's smoke config
+    (96, 8, 192),     # Nemotron-4-340B (qpk 12)
+    (8, 2, 256),      # the widest row the kernels take
+])
 @pytest.mark.parametrize("prec", [None, "fp8", "int8"])
-def test_cuda_kernels_match_plain_versions(cuda_device, prec):
-    """Both CUDA kernels against their plain versions on the card, at
-    Qwen2.5-14B's head layout (qpk 5), bf16 queries; tolerance 2e-2 for
-    the bf16 rounding of the output on unit-scale inputs."""
+def test_cuda_kernels_match_plain_versions(cuda_device, prec, H, KV, hd):
+    """Both CUDA kernels against their plain versions on the card, bf16
+    queries, at four head layouts; tolerance 2e-2 for the bf16 rounding
+    of the output on unit-scale inputs.  hd 128 and 192 prefill on the
+    wgmma body, hd 40 and 256 on the f32 FMA body."""
     from repro_torch.kernels import chunked_prefill_attention as cpa
     from repro_torch.kernels import paged_decode_attention as pda
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    B, H, KV, hd, page, n_pp = 4, 40, 8, 128, 8, 16
+    B, page, n_pp = 4, 8, 16
     bf16 = torch.bfloat16
 
     def randn(*shape):
@@ -60,10 +67,13 @@ def test_cuda_kernels_match_plain_versions(cuda_device, prec):
     k, kcs = kv(randn(B, S, KV, hd))
     v, vcs = kv(randn(B, S, KV, hd))
     off = torch.tensor([0, 7, 50, 88], dtype=torch.int32, device=cuda_device)
+    before = dict(cpa.body_launches)
     got = cpa.chunked_prefill_attention(qc, k, v, off, kcs, vcs)
     exp = ref.chunked_prefill_attention_ref(qc, k, v, off, kcs, vcs)
     torch.cuda.synchronize()
     assert float((got.float() - exp.float()).abs().max()) < 2e-2
+    body = "wgmma" if hd in (128, 192) else "fma"
+    assert cpa.body_launches[body] == before[body] + 1
 
 
 def _pool(x, prec):
@@ -161,12 +171,12 @@ def test_chunked_prefill_edges(cuda_device, prec, Tq, S, offs):
 
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "qwen3-moe-30b-a3b",
                                   "grok-1-314b", "nemotron-4-340b",
-                                  "chatglm3-6b"])
+                                  "chatglm3-6b", "phi4-mini-3.8b"])
 def test_engine_on_card_matches_cpu(cuda_device, arch):
     """A smoke config (f32; dense, MoE, LayerNorm with squared ReLU, half
-    rotary) greedy-decodes the same tokens on the card, through both
-    kernels, as on the CPU through their plain versions, from the same
-    weights."""
+    rotary, phi4-mini's head dim of 40) greedy-decodes the same tokens on
+    the card, through both kernels, as on the CPU through their plain
+    versions, from the same weights."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.engine import BatchItem, InstanceEngine
     from repro_torch.kernels import chunked_prefill_attention as cpa

@@ -8,7 +8,11 @@ same plain versions on the card (``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``).
 
 Tolerances: f32 2e-5 (summation order only); bf16 2e-2 (both sides round
-the output to bf16, and JAX also runs its einsums in bf16)."""
+the output to bf16, and JAX also runs its einsums in bf16).
+
+Head dims: the serving paths' 128 and the smoke configs' 32 and 64, and
+the rest of what the CUDA kernels take (``kernels.shapes``): 40 (phi4-
+mini's smoke config), 96, 192 (Nemotron-4-340B) and 256 (the widest)."""
 import numpy as np
 import pytest
 
@@ -60,6 +64,10 @@ def _quant_pair(jx, tx, prec):
     (2, 16, 48, 6, 1, 128),      # MQA, wide head
     (1, 33, 70, 4, 2, 64),       # sizes that are no tile multiple
     (2, 12, 40, 10, 2, 32),      # qpk 5, as Qwen2.5-14B
+    (2, 24, 64, 6, 2, 40),       # phi4-mini's smoke head dim
+    (1, 33, 70, 4, 2, 96),
+    (2, 16, 48, 24, 2, 192),     # Nemotron-4-340B's head dim, qpk 12
+    (2, 12, 40, 8, 2, 256),      # the widest row the CUDA kernels take
 ])
 def test_chunked_prefill_matches_pallas(dtype, B, Tq, S, H, KV, hd):
     rng = np.random.default_rng(B * 1000 + Tq + S + H)
@@ -96,6 +104,10 @@ def test_chunked_prefill_per_row_ragged_offsets():
     (2, 8, 2, 64, 8, 4),
     (3, 4, 4, 32, 16, 2),        # MHA
     (1, 16, 2, 128, 8, 8),       # deep GQA
+    (2, 6, 2, 40, 8, 4),         # phi4-mini's smoke head dim
+    (1, 4, 2, 96, 16, 2),
+    (2, 24, 2, 192, 8, 4),       # Nemotron-4-340B's head dim, qpk 12
+    (1, 8, 4, 256, 8, 3),        # the widest row the CUDA kernels take
 ])
 def test_paged_decode_matches_pallas(dtype, B, H, KV, hd, page, n_pp):
     rng = np.random.default_rng(B * 100 + H + page)
@@ -274,15 +286,30 @@ def test_quantize_kv_codes_and_scales_byte_equal(prec):
         < 3 * QTOL[prec]
 
 
+def _head_dim_cases(old, new):
+    """``old`` cases at hd 64 in f32 under their earlier ids, then
+    ``new`` cases (a shape for each of the other head dims) in f32 and in
+    bf16."""
+    cases = [pytest.param(*c, 64, "float32", id="-".join(map(str, c)))
+             for c in old]
+    for c, hd in new:
+        for dt in ("float32", "bfloat16"):
+            cases.append(pytest.param(*c, hd, dt, id="-".join(
+                map(str, c)) + f"-hd{hd}-{dt}"))
+    return cases
+
+
 @pytest.mark.parametrize("prec", ["fp8", "int8"])
-@pytest.mark.parametrize("page,qpk", [(8, 1), (16, 2), (32, 4), (8, 5)])
-def test_paged_decode_quantized_matches_pallas(prec, page, qpk):
+@pytest.mark.parametrize("page,qpk,hd,dtype", _head_dim_cases(
+    [(8, 1), (16, 2), (32, 4), (8, 5)],
+    [((8, 3), 40), ((16, 2), 96), ((8, 12), 192), ((32, 4), 256)]))
+def test_paged_decode_quantized_matches_pallas(prec, page, qpk, hd, dtype):
     rng = np.random.default_rng(page * 10 + qpk)
-    B, KV, hd, n_pp = 3, 2, 64, 3
+    B, KV, n_pp = 3, 2, 3
     H, n_pages = KV * qpk, B * n_pp + 1
-    jq, tq = _pair(rng, (B, H, hd))
-    jk, tk = _pair(rng, (n_pages, page, KV, hd))
-    jv, tv = _pair(rng, (n_pages, page, KV, hd))
+    jq, tq = _pair(rng, (B, H, hd), dtype)
+    jk, tk = _pair(rng, (n_pages, page, KV, hd), dtype)
+    jv, tv = _pair(rng, (n_pages, page, KV, hd), dtype)
     jt, tt = _ints(rng.permutation(n_pages)[:B * n_pp].reshape(B, n_pp))
     jl, tl = _ints([1, page * 2 - 3, page * n_pp])
     (jkc, jks), (tkc, tks) = _quant_pair(jk, tk, prec)
@@ -290,30 +317,31 @@ def test_paged_decode_quantized_matches_pallas(prec, page, qpk):
     exp = jops.paged_decode_attention_op(jq, jkc, jvc, jt, jl, jks, jvs,
                                          interpret=True)
     got = tops.paged_decode_attention_op(tq, tkc, tvc, tt, tl, tks, tvs)
-    _close(got, exp, 2e-5)
+    _close(got, exp, TOL[dtype])
     full = tops.paged_decode_attention_op(tq, tk, tv, tt, tl)
     assert float((got - full).abs().max()) < QTOL[prec]
 
 
 @pytest.mark.parametrize("prec", ["fp8", "int8"])
-@pytest.mark.parametrize("B,Tq,S,KV,qpk", [
-    (2, 24, 64, 2, 4),            # GQA, ragged chunk
-    (1, 33, 70, 2, 2),            # sizes that are no tile multiple
-    (3, 8, 40, 4, 1),             # MHA, per-row ragged offsets
-])
-def test_chunked_prefill_quantized_matches_pallas(prec, B, Tq, S, KV, qpk):
+@pytest.mark.parametrize("B,Tq,S,KV,qpk,hd,dtype", _head_dim_cases(
+    [(2, 24, 64, 2, 4),            # GQA, ragged chunk
+     (1, 33, 70, 2, 2),            # sizes that are no tile multiple
+     (3, 8, 40, 4, 1)],            # MHA, per-row ragged offsets
+    [((2, 24, 64, 2, 3), 40), ((1, 33, 70, 2, 2), 96),
+     ((2, 24, 64, 2, 12), 192), ((3, 8, 40, 4, 1), 256)]))
+def test_chunked_prefill_quantized_matches_pallas(prec, B, Tq, S, KV, qpk,
+                                                  hd, dtype):
     rng = np.random.default_rng(B + Tq + S + qpk)
-    hd = 64
-    jq, tq = _pair(rng, (B, Tq, KV * qpk, hd))
-    jk, tk = _pair(rng, (B, S, KV, hd))
-    jv, tv = _pair(rng, (B, S, KV, hd))
+    jq, tq = _pair(rng, (B, Tq, KV * qpk, hd), dtype)
+    jk, tk = _pair(rng, (B, S, KV, hd), dtype)
+    jv, tv = _pair(rng, (B, S, KV, hd), dtype)
     joff, toff = _ints(rng.integers(0, S - Tq, B))
     (jkc, jks), (tkc, tks) = _quant_pair(jk, tk, prec)
     (jvc, jvs), (tvc, tvs) = _quant_pair(jv, tv, prec)
     exp = jops.chunked_prefill_attention_op(jq, jkc, jvc, joff, jks, jvs,
                                             bq=8, bk=16, interpret=True)
     got = tops.chunked_prefill_attention_op(tq, tkc, tvc, toff, tks, tvs)
-    _close(got, exp, 2e-5)
+    _close(got, exp, TOL[dtype])
     full = tops.chunked_prefill_attention_op(tq, tk, tv, toff)
     assert float((got - full).abs().max()) < QTOL[prec]
 
