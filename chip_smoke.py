@@ -17,12 +17,18 @@ exits non-zero without the final result line:
              KV 4; Phi-4-mini: H 24, KV 8), for bf16, fp8 and int8 pools,
              plus split-KV edges, poison pages and NaN past the prefill
              edges, and at every other kind of head dim the kernels take
-             (40, 96, 192, 256; f32 and bf16 queries, every pool); then
-             kernel, plain and SDPA times at the three paths' shapes and
-             at the phi4-mini smoke layout (H 6, KV 2, hd 40, f32) beside
-             the kernel's bound: event time of a loop of wrapper calls and
-             device time of the kernels alone (torch.profiler), the kernel
-             and SDPA timed in turns.
+             (8, 40, 64, 96, 192, 256; f32 and bf16 queries, every pool;
+             rows padded to a wgmma width read at their own extent and
+             head stride, 40, 96 and 200, beside NaN heads); then kernel,
+             plain and SDPA times at the three paths' shapes, at the
+             phi4-mini smoke layout (H 6, KV 2, hd 40, f32 and bf16) and
+             at the prefill rows of other head dims (Whisper-large-v3's
+             hd 64, hd 96, RecurrentGemma-9B's hd 256, the 14B's f32
+             card-vs-CPU layout) beside the kernel's bound: event time of
+             a loop of wrapper calls and device time of the kernels alone
+             (torch.profiler; a prefill row quotes the event time where
+             the two differ by more than 10%), the kernel and SDPA timed
+             in turns.  f32 prefill is held to 3e-5 (the 3xTF32 body).
 4. model   — Qwen2.5-14B at full width and 2 layers, paged forward once
              through the kernels and once through the plain attention.
 5. serve   — full Qwen2.5-14B (48 layers, random weights from a seed)
@@ -71,8 +77,9 @@ exits non-zero without the final result line:
 10. launch — ``repro_torch.launch.serve.main(["--smoke", "--open-loop",
              "--overlap"])`` in-process: the smoke-config path users start;
              then ``main(["--arch", "phi4-mini-3.8b", "--smoke"])``, whose
-             head dim of 40 takes the decode kernel's 8-lane rows and the
-             prefill kernel's FMA body (both kernels must launch).
+             head dim of 40 takes the decode kernel's 8-lane rows; both
+             smoke configs run in f32, so every prefill launch must take
+             the 3xTF32 body (both kernels must launch).
 11. dense  — the dense slot cache, whose mixers are plain PyTorch ops (no
              paged kernel may launch): RecurrentGemma-9B and Mamba2-780M,
              full width and depth, serve the serve phase's 8 requests
@@ -127,7 +134,10 @@ Optional, not in the default run: ``--phases profile`` profiles prefill
 and decode steps of one engine each of Qwen2.5-14B, Qwen3-30B-A3B,
 RecurrentGemma-9B and Mamba2-780M (device time by kernel class, MoE
 routing and dispatch apart, the dense attention and the scans apart, and
-the device's idle share).
+the device's idle share).  ``--phases tf32_one_pass`` builds a copy of
+the prefill source whose 3xTF32 products keep only hi.hi (one TF32 pass)
+and shows that f32 prefill's 3e-5 bound fails it while the real build
+keeps within it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit and the one before that the
@@ -148,14 +158,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "model", "serve", "nemotron", "moe", "http", "tp",
           "launch", "dense", "train", "dryrun", "examples")  # default
-EXTRA_PHASES = ("profile",)                 # only when asked for
+EXTRA_PHASES = ("profile", "tf32_one_pass")  # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
 # the larger of its bytes over HBM bandwidth and its flops over the dense
 # bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
-# f32 outside the tensor cores: the peak of the f32 FMA body
+# dense TF32 on the tensor cores (half the data sheet's 989 with
+# sparsity), three products per f32 product: the rate at which the card
+# does f32-accurate products, so the bound of an f32 row
+TF32X3_FLOPS_PER_S = 494.5e12 / 3
+# f32 outside the tensor cores: the bound PERF.md's f32 rows kept before
+# the 3xTF32 body, still printed beside the bound for their history
 F32_FLOPS_PER_S = 67e12
 
 # Kernel-vs-plain tolerances, elementwise: |got - exp| <= abs + rel * |exp|.
@@ -168,6 +183,15 @@ F32_FLOPS_PER_S = 67e12
 # on unit-scale inputs, as the flat bound did.  Poisoned pages must leave
 # the output bit-identical.
 TOL = {"bfloat16": (2e-2, 2 ** -7), "float32": (1e-4, 0.0)}
+# f32 queries in prefill run on the 3xTF32 body.  Its products keep
+# about 21 bits (lo.lo left out, lo rounded at 2**-22 of the operand), so
+# on unit-scale inputs the scores err by up to 3 * 2**-22 * 0.64 *
+# sqrt(hd), 7e-6 at hd 256, and the output by a few times that.  One TF32
+# pass keeps 11 bits and errs by 5e-4 to 1e-3 at the sweep's shapes,
+# within TOL["float32"].  So f32 prefill is held to 3e-5, which tells
+# three passes from one (the ``tf32_one_pass`` phase runs a one-pass copy
+# against it).
+PREFILL_TOL = {**TOL, "float32": (3e-5, 0.0)}
 # Full-width 2-layer model, kernels vs plain attention, max abs error of
 # the logits (std ~1.4): the two attentions sum in another order, so
 # their bf16 outputs differ by single roundings (relative 2**-8), and
@@ -193,9 +217,23 @@ TRAIN_PATH = "phi4-mini-3.8b"
 NEMOTRON_PATH = "nemotron-4-340b"
 # the launcher's phi4-mini smoke config: H 6, KV 2, hd 40, f32
 PHI4_SMOKE_PATH = "phi4-mini-3.8b smoke"
-# head dims the kernel checks sweep beside the serving paths' 128: rows
-# that leave lanes idle, a row of 96, Nemotron's 192 and the widest, 256
-HEAD_DIMS = (40, 96, 192, 256)
+#: the layouts the kernels phase times both kernels at, as
+#: ``time_kernels`` takes them: the serving paths' heads (bf16, with fp8
+#: and int8 pools) and the launcher's phi4-mini smoke config
+TIMED_PATHS = {
+    "qwen2.5-14b": dict(H=40, KV=8),
+    MOE_PATH: dict(H=32, KV=4),
+    TRAIN_PATH: dict(H=24, KV=8),
+    PHI4_SMOKE_PATH: dict(H=6, KV=2, quant=False, hd=40, dtype="float32"),
+}
+# head dims the kernel checks sweep beside the serving paths' 128: the
+# narrowest row (8; prefill's widest padding, to 64), rows that leave
+# lanes idle (40), the 64-wide wgmma instance, a row of 96, Nemotron's 192
+# and the widest, 256
+HEAD_DIMS = (8, 40, 64, 96, 192, 256)
+# rows below their wgmma width, read beside NaN heads (40 -> 64, 96 ->
+# 128, 200 -> 256)
+PADDED_HEAD_DIMS = (40, 96, 200)
 KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
 
 
@@ -242,6 +280,8 @@ class KernelChecks:
         self.n_cases = 0
         # cases within the bound only by its one-ulp term: (what, err)
         self.by_ulp = []
+        # f32-query prefill cases: [count, worst max abs err]
+        self.f32_prefill = [0, 0.0]
 
     def randn(self, *shape, dtype=None):
         t = self.torch.randn(shape, generator=self.gen, device="cuda")
@@ -357,9 +397,11 @@ class KernelChecks:
 
     # ---- chunked prefill ----
     def prefill_case(self, B, Tq, S, H, KV, hd, dtype, offsets=None,
-                     prec=None, main_path=False, what="", kv_dtype=None):
+                     prec=None, main_path=False, what="", kv_dtype=None,
+                     scaled=False):
         """``kv_dtype``: the K/V type when it is not quantized (q's type
-        by default)."""
+        by default); ``scaled``: unquantized K/V with per-token scales
+        in [0.5, 1.5)."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.chunked_prefill_attention import \
@@ -370,6 +412,9 @@ class KernelChecks:
         ks = vs = None
         if prec is None:
             k, v = k.to(kv_dtype or dtype), v.to(kv_dtype or dtype)
+            if scaled:
+                ks = torch.rand(B, S, generator=self.gen, device="cuda") + 0.5
+                vs = torch.rand(B, S, generator=self.gen, device="cuda") + 0.5
         else:
             k, ks = self.quant(k, prec)
             v, vs = self.quant(v, prec)
@@ -379,11 +424,15 @@ class KernelChecks:
         off = torch.as_tensor(offsets, dtype=torch.int32).cuda()
         out = chunked_prefill_attention(q, k, v, off, ks, vs)
         exp = ref.chunked_prefill_attention_ref(q, k, v, off, ks, vs)
-        tol, rel = TOL[str(dtype).replace("torch.", "")]
-        return self.record("chunked_prefill_attention", out, exp, tol,
-                           what or f"B{B} Tq{Tq} S{S} H{H} KV{KV} hd{hd} "
-                                   f"{dtype} {prec or kv_dtype}", main_path,
-                           rel)
+        tol, rel = PREFILL_TOL[str(dtype).replace("torch.", "")]
+        err = self.record("chunked_prefill_attention", out, exp, tol,
+                          what or f"B{B} Tq{Tq} S{S} H{H} KV{KV} hd{hd} "
+                                  f"{dtype} {prec or kv_dtype}", main_path,
+                          rel)
+        if dtype == torch.float32:
+            self.f32_prefill[0] += 1
+            self.f32_prefill[1] = max(self.f32_prefill[1], err)
+        return err
 
     def prefill_poison(self, B, Tq, S, H, KV, hd, dtype, offsets, prec=None):
         """K/V past each row's causal frontier hold garbage: the output
@@ -454,6 +503,47 @@ class KernelChecks:
                                           off, ks, vs)
         return self.record("chunked_prefill_attention", dirty, clean, 0.0,
                            f"NaN past Tq {Tq} and S {S} {dtype} {prec}")
+
+    def prefill_nan_heads(self, hd, prec=None, B=2, Tq=130, S=300, H=2,
+                          KV=1, pad=24):
+        """A row below its instance width must be read at its own extent
+        and head stride: q, k and v are row views of buffers laid out (B,
+        rows, 2, heads, hd) whose second half of every row (with one KV
+        head, the head after the valid one) and rows past Tq and S hold
+        NaN (int8 codes: the extreme code).  The output must be finite and
+        within tolerance of the plain version on the views."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.chunked_prefill_attention import \
+            chunked_prefill_attention
+        from repro_torch.kernels.ref import as_indexable
+        bf16 = torch.bfloat16
+        qb = self.randn(B, Tq + pad, 2, H, hd, dtype=bf16)
+        kb = self.randn(B, S + pad, 2, KV, hd)
+        vb = self.randn(B, S + pad, 2, KV, hd)
+        ks = vs = None
+        if prec is None:
+            kb, vb = kb.to(bf16), vb.to(bf16)
+        else:
+            kb, ks = self.quant(kb, prec)
+            vb, vs = self.quant(vb, prec)
+            ks, vs = ks[:, :S, 0].contiguous(), vs[:, :S, 0].contiguous()
+        qb[:, :, 1] = float("nan")
+        qb[:, Tq:] = float("nan")
+        bad = 127.0 if prec == "int8" else float("nan")
+        for t in (kb, vb):
+            for rows in ((slice(None), slice(None), 1),
+                         (slice(None), slice(S, None))):
+                as_indexable(t)[rows] = as_indexable(torch.full_like(
+                    t[rows], bad, dtype=torch.float32).to(t.dtype))
+        q, k, v = qb[:, :Tq, 0], kb[:, :S, 0], vb[:, :S, 0]
+        off = torch.tensor([170, 0], dtype=torch.int32).cuda()
+        out = chunked_prefill_attention(q, k, v, off, ks, vs)
+        exp = ref.chunked_prefill_attention_ref(q, k, v, off, ks, vs)
+        tol, rel = TOL["bfloat16"]
+        return self.record("chunked_prefill_attention", out, exp, tol,
+                           f"hd {hd} beside NaN heads, {prec or 'bf16'} KV",
+                           rel=rel)
 
 
 def serving_paths(kc, paths, hd: int = 128):
@@ -547,7 +637,20 @@ def run_kernel_checks(seed: int):
                                 offsets=[170, 0], prec=prec, kv_dtype=kv_dt)
         kc.decode_poison(2, 4, 2, hd_x, 8, 8, bf16, [11, 40])
         kc.prefill_poison(2, 24, 96, 4, 2, hd_x, bf16, [0, 50])
+        kc.prefill_poison(2, 24, 96, 4, 2, hd_x, f32, [0, 50])
         kc.prefill_nan_edge(2, 33, 70, 4, 2, hd_x, bf16, [20, 37])
+        kc.prefill_nan_edge(2, 33, 70, 4, 2, hd_x, f32, [20, 37])
+    for hd_x in PADDED_HEAD_DIMS:
+        for prec in (None, "fp8", "int8"):
+            kc.prefill_nan_heads(hd_x, prec)
+    # the mma.sync body (bf16 queries on f32 pools and scaled bf16 pools
+    # at its widths) and scaled bf16 pools on the 3xTF32 body beside it
+    for hd_x in (32, 64, 128, 40):
+        for kv_dt, scaled in ((f32, False), (bf16, True)):
+            kc.prefill_case(2, 130, 300, 12, 2, hd_x, bf16, offsets=[170, 0],
+                            kv_dtype=kv_dt, scaled=scaled,
+                            what=f"hd {hd_x} bf16 queries, {kv_dt} KV"
+                                 + (" with scales" if scaled else ""))
     log_kernel_checks(kc)
     return {name: max(errs[name] for errs in kc.err.values())
             for name in KERNELS}
@@ -584,70 +687,117 @@ def edge_cases(kc, H, KV, hd, page=8, n_pp=512, split=256):
 
 def log_kernel_checks(kc, note=""):
     (bt, br), (ft, _) = TOL["bfloat16"], TOL["float32"]
+    pt = PREFILL_TOL["float32"][0]
     log(f"[kernels] {kc.n_cases} cases within tolerance {note}(bf16 {bt} + "
-        f"{br:.6g} |expected|, f32 {ft}, poison exact); "
+        f"{br:.6g} |expected|, f32 decode {ft}, f32 prefill {pt}, poison "
+        f"exact); "
         f"{len(kc.by_ulp)} bf16 cases over {bt} and within its one-ulp "
         f"term" + "".join(f"; {w}: {e:.3e}" for w, e in kc.by_ulp)
         + "; max abs err at the serving paths' shapes: "
         + "; ".join(f"{path}: " + ", ".join(f"{k} {v:.3e}"
                                             for k, v in errs.items())
                     for path, errs in kc.err.items()))
+    if kc.f32_prefill[0]:
+        log(f"[kernels] f32-query prefill (3xTF32 body) {note}: "
+            f"{kc.f32_prefill[0]} cases, worst max abs err "
+            f"{kc.f32_prefill[1]:.3e} (bound {pt})")
 
 
 #: captures of one window under torch.profiler before giving up on it:
-#: now and then the profiler hands back a trace with no device activity
+#: now and then the profiler hands back a trace that lost kernels
 PROFILE_TRIES = 3
 
 
-def device_ms(fn, n: int) -> float:
-    """Device time of one call of ``fn``: the summed duration of every
-    kernel that ``n`` calls launch (both passes of split-KV decode), over
-    ``n``, from torch.profiler's CUDA activity.  Where ``PROFILE_TRIES``
-    captures record no device activity, the CUDA-event time of ``n``
-    calls in its place (the kernels and the gaps between them), said so
-    on the log."""
+def device_ms(fn, n: int) -> tuple:
+    """Device time of one call of ``fn`` and what timed it: the summed
+    duration of every kernel that ``n`` calls launch (both passes of
+    split-KV decode), over ``n``, from torch.profiler's CUDA activity,
+    recorded after one warm-up step of the profiler (a capture loses the
+    first kernels it sees otherwise).  Every call launches the same
+    kernels, so a capture whose count of kernels is no multiple of ``n``
+    has lost some and is taken again.  Where ``PROFILE_TRIES`` captures
+    all fail so, the CUDA-event time of ``n`` calls in its place (the
+    kernels and the gaps between them), said so on the log and in the
+    second value."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / n / 1e3
+            prof.step()
+        kern = [ev for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if kern and len(kern) % n == 0:
+            return (sum(ev.time_range.elapsed_us() for ev in kern) / n / 1e3,
+                    "torch.profiler")
+        log(f"[timing] torch.profiler recorded {len(kern)} kernels for {n} "
+            f"calls; capture taken again")
     ms = cuda_ms(fn, n, warmup=0)
-    log(f"[timing] torch.profiler recorded no device activity in "
-        f"{PROFILE_TRIES} captures; CUDA-event time {ms:.4f} ms a call "
-        f"taken as the device time")
-    return ms
+    log(f"[timing] no sound torch.profiler capture in {PROFILE_TRIES}; "
+        f"CUDA-event time {ms:.4f} ms a call taken as the device time")
+    return ms, "events (torch.profiler lost kernels)"
+
+
+#: a prefill row whose device time lies more than this share below its
+#: event time quotes the event time: a prefill kernel outlasts the host's
+#: launch of the next, so the two agree unless the profiler lost kernels
+TIMING_GAP = 0.10
+
+
+def settled(t) -> tuple:
+    """``in_turns``'s (event ms, device ms, what timed it) of a prefill
+    call -> (the ms to quote, what timed it): the device time, or the
+    event time (which can only overstate the device's) where the two
+    differ by more than ``TIMING_GAP``."""
+    ev, dev, how = t
+    if abs(ev - dev) <= TIMING_GAP * ev:
+        return dev, how
+    return ev, f"events (torch.profiler read {dev:.4f} ms)"
 
 
 def in_turns(fns: dict, iters: int, rounds: int = 2) -> dict:
     """Event and device times of each callable, taken in turns (a, b, b,
     a, ...), so that callables timed together see the same card state;
-    only ratios within one run are compared.  Means over the rounds."""
+    only ratios within one run are compared.  Means over the rounds, and
+    what timed the device: torch.profiler, or events in the rounds where
+    no capture was sound (``device_ms``)."""
     ev = {k: [] for k in fns}
     dev = {k: [] for k in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
             ev[name].append(cuda_ms(fns[name], iters))
             dev[name].append(device_ms(fns[name], iters))
-    return {k: (sum(ev[k]) / rounds, sum(dev[k]) / rounds) for k in fns}
+    out = {}
+    for k in fns:
+        lost = sum(how != "torch.profiler" for _, how in dev[k])
+        out[k] = (sum(ev[k]) / rounds, sum(ms for ms, _ in dev[k]) / rounds,
+                  "torch.profiler" if not lost else
+                  f"events in {lost} of {rounds} rounds (torch.profiler "
+                  f"lost kernels)")
+    return out
 
 
 def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True,
-                 hd: int = 128, dtype: str = "bfloat16"):
+                 hd: int = 128, dtype: str = "bfloat16", decode: bool = True):
     """Kernel, plain and SDPA times at one serving path's shapes (``H``
     query and ``KV`` key/value heads of ``hd``, in ``dtype``), with each
-    kernel's bound from this run's inputs (f32 operations against the f32
-    peak outside the tensor cores): event time of a loop of wrapper calls
-    and device time of the kernels alone, the kernel and SDPA in turns;
-    with ``quant``, the prefill kernel over fp8 and int8 pools too.  The
-    prefill row names the body the kernel took."""
+    kernel's bound from this run's inputs (f32 operations against the
+    3xTF32 rate; f32 prefill also beside the bound at the f32 peak outside
+    the tensor cores, which PERF.md's earlier rows used): event time of a
+    loop of wrapper calls and device time of the kernels alone, each with
+    what timed it, the kernel and SDPA in turns; with ``quant``, both
+    kernels over fp8 and int8 pools too (no SDPA: no single PyTorch call
+    attends over codes); without ``decode``, prefill alone.  The prefill
+    row names the body the kernel took."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import chunked_prefill_attention as cpa
@@ -661,25 +811,32 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True,
     gc = torch.Generator().manual_seed(seed)
     dt = getattr(torch, dtype)            # the working type of the path
     esz = torch.empty(0, dtype=dt).element_size()
-    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else TF32X3_FLOPS_PER_S
     res = {}
+    quant_dec = {}
 
     # paged decode: 8 slots, page 8, a table of 512 pages (4096 tokens) as
     # in the serve phase; long contexts spread up to 4096, then short ones
     # (128-256 tokens, one live span) as the serve phase's decode sees
     B, page, n_pp = 8, 8, 512
     n_pages = B * n_pp
-    q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
-    kp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(dt)
-    vp = torch.randn(n_pages, page, KV, hd, generator=g, device="cuda").to(dt)
-    tbl = torch.randperm(n_pages, generator=gc).reshape(B, n_pp).to(
-        torch.int32).cuda()
-    kd = gather_pages(kp, tbl).transpose(1, 2).repeat_interleave(H // KV, 1)
-    vd = gather_pages(vp, tbl).transpose(1, 2).repeat_interleave(H // KV, 1)
-    qd = q[:, :, None, :]
     for label, lens_l in (("long", [512, 1024, 1536, 2048, 2560, 3072, 3584,
                                     4096]),
-                          ("short", [128, 146, 164, 182, 201, 219, 237, 256])):
+                          ("short", [128, 146, 164, 182, 201, 219, 237, 256])
+                          ) if decode else ():
+        if label == "long":
+            q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+            kp = torch.randn(n_pages, page, KV, hd, generator=g,
+                             device="cuda").to(dt)
+            vp = torch.randn(n_pages, page, KV, hd, generator=g,
+                             device="cuda").to(dt)
+            tbl = torch.randperm(n_pages, generator=gc).reshape(B, n_pp).to(
+                torch.int32).cuda()
+            kd = gather_pages(kp, tbl).transpose(1, 2).repeat_interleave(
+                H // KV, 1)
+            vd = gather_pages(vp, tbl).transpose(1, 2).repeat_interleave(
+                H // KV, 1)
+            qd = q[:, :, None, :]
         lens = torch.tensor(lens_l, dtype=torch.int32).cuda()
         mask = (torch.arange(n_pp * page, device="cuda")[None]
                 < lens[:, None])[:, None, None, :]
@@ -690,17 +847,32 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True,
         plain = cuda_ms(lambda: ref.paged_decode_attention_ref(
             q, kp, vp, tbl, lens), 5)
         ctx = sum(lens_l)
+        tbl_bytes = sum(-(-n // page) for n in lens_l) * 4 + B * 4
         n_bytes = (2 * B * H * hd * esz                    # q in, out
                    + 2 * ctx * KV * hd * esz               # live K and V
-                   + sum(-(-n // page) for n in lens_l) * 4 + B * 4)
-        r = dict(ms=t["kernel"][0], device_ms=t["kernel"][1], plain_ms=plain,
+                   + tbl_bytes)
+        r = dict(ms=t["kernel"][0], device_ms=t["kernel"][1],
+                 timed_by=t["kernel"][2], plain_ms=plain,
                  library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
+                 library_timed_by=t["sdpa"][2],
                  **bound(n_bytes, 4 * ctx * H * hd, peak),
                  shape=f"B={B} H={H} KV={KV} hd={hd} page={page} n_pp={n_pp} "
                        f"contexts={lens_l} {dtype}")
         res["paged_decode_attention" + ("" if label == "long" else
                                         " (short contexts)")] = r
-    del kd, vd, kp, vp
+        # quantized pools, long contexts: one byte a code and an f32 scale
+        # a key row, for K and for V
+        for prec in ("fp8", "int8") if quant and label == "long" else ():
+            kq, ksq = quantize_kv(kp, prec)
+            vq, vsq = quantize_kv(vp, prec)
+            tq = in_turns({"kernel": lambda: paged_decode_attention(
+                q, kq, vq, tbl, lens, ksq, vsq)}, 50, rounds=1)["kernel"]
+            quant_dec[prec] = (tq, bound(
+                2 * B * H * hd * esz + 2 * ctx * (KV * hd + 4) + tbl_bytes,
+                4 * ctx * H * hd, peak))
+            del kq, vq
+    if decode:
+        del kd, vd, kp, vp
 
     # chunked prefill: 8 rows of a 512-token chunk against S=4096
     Tq, S = 512, 4096
@@ -725,18 +897,25 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True,
     visible = sum(min(S, o + i + 1) for o in offs_l for i in range(Tq))
     keys = sum(min(S, o + Tq) for o in offs_l)
     n_bytes = 2 * B * Tq * H * hd * esz + 2 * keys * KV * hd * esz + B * 4
+    flops = 4 * visible * H * hd
+    (dev, timed_by), (lib_dev, lib_timed_by) = (settled(t["kernel"]),
+                                                settled(t["sdpa"]))
     res["chunked_prefill_attention"] = dict(
-        ms=t["kernel"][0], device_ms=t["kernel"][1], plain_ms=plain,
-        library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
-        **bound(n_bytes, 4 * visible * H * hd, peak), body="/".join(body),
+        ms=t["kernel"][0], device_ms=dev, timed_by=timed_by,
+        plain_ms=plain, library_ms=t["sdpa"][0], library_device_ms=lib_dev,
+        library_timed_by=lib_timed_by, **bound(n_bytes, flops, peak),
+        body="/".join(body),
         shape=f"B={B} Tq={Tq} S={S} H={H} KV={KV} hd={hd} offsets={offs_l} "
               f"{dtype}")
+    if dtype == "float32":
+        res["chunked_prefill_attention"]["f32_cuda_core_bound_ms"] = \
+            flops / F32_FLOPS_PER_S * 1e3
     # quantized pools at the same shape: their codes convert to bf16 in
     # the kernel, so the same operations count, over 1-byte codes plus an
     # f32 scale a key row
     del kd, vd
     q_bound = bound(2 * B * Tq * H * hd * esz + 2 * keys * (KV * hd + 4)
-                    + B * 4, 4 * visible * H * hd)
+                    + B * 4, flops)
     quant_t = {}
     for prec in ("fp8", "int8") if quant else ():
         kq, ksq = quantize_kv(k, prec)
@@ -744,29 +923,155 @@ def time_kernels(seed: int, path: str, H: int, KV: int, quant: bool = True,
         before = dict(cpa.body_launches)
         tq = in_turns({"kernel": lambda: chunked_prefill_attention(
             qp, kq, vq, off, ksq, vsq)}, 10, rounds=1)["kernel"]
-        quant_t[prec] = (tq, [b for b in cpa.BODIES
-                              if cpa.body_launches[b] != before[b]])
+        quant_t[prec] = (tq[0], *settled(tq), [
+            b for b in cpa.BODIES if cpa.body_launches[b] != before[b]])
         del kq, vq
     for name, r in res.items():
+        f32 = (f"; at the f32 CUDA-core peak {r['f32_cuda_core_bound_ms']:.4f}"
+               f" ms, {r['f32_cuda_core_bound_ms'] / r['device_ms']:.3f} of it"
+               if "f32_cuda_core_bound_ms" in r else "")
         log(f"[time] {path} {name}"
             + (f" ({r['body']} body)" if "body" in r else "")
             + f": kernel {r['ms']:.4f} ms (events), device "
-            f"{r['device_ms']:.4f} ms (torch.profiler); SDPA "
+            f"{r['device_ms']:.4f} ms ({r['timed_by']}); SDPA "
             f"{r['library_ms']:.4f} ms (events), device "
-            f"{r['library_device_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['bound_ms'] / r['device_ms']:.3f} of it on the device; "
+            f"{r['library_device_ms']:.4f} ms ({r['library_timed_by']}); "
+            f"plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['device_ms']:.3f} of it "
+            f"on the device{f32}; "
             f"device time / SDPA device time "
             f"{r['device_ms'] / r['library_device_ms']:.3f}; at {r['shape']}")
-    for prec, (tq, bodies) in quant_t.items():
+    for prec, (tq, qb) in quant_dec.items():
+        log(f"[time] {path} paged_decode_attention, {prec} pool: "
+            f"{tq[0]:.4f} ms (events), device {tq[1]:.4f} ms ({tq[2]}), "
+            f"long contexts; bound {qb['bound_ms']:.4f} ms ({qb['bound_by']}: "
+            f"codes and scales), {qb['bound_ms'] / tq[1]:.3f} of it on the "
+            f"device; no single PyTorch call attends over {prec} codes with "
+            f"per-token scales")
+    for prec, (ev, dev, timed_by, bodies) in quant_t.items():
         log(f"[time] {path} chunked_prefill_attention, {prec} pool "
-            f"({'/'.join(bodies)} body): {tq[0]:.4f} ms (events), device "
-            f"{tq[1]:.4f} ms, same shape; bound {q_bound['bound_ms']:.4f} ms "
-            f"({q_bound['bound_by']}), {q_bound['bound_ms'] / tq[1]:.3f} of "
-            f"it on the device; no single PyTorch call attends over "
-            f"{prec} codes with per-token scales")
-    res.pop("paged_decode_attention (short contexts)")
+            f"({'/'.join(bodies)} body): {ev:.4f} ms (events), device "
+            f"{dev:.4f} ms ({timed_by}), same shape; bound "
+            f"{q_bound['bound_ms']:.4f} ms ({q_bound['bound_by']}), "
+            f"{q_bound['bound_ms'] / dev:.3f} of it on the device; no single "
+            f"PyTorch call attends over {prec} codes with per-token scales")
+    res.pop("paged_decode_attention (short contexts)", None)
     return res
+
+
+#: prefill alone at head dims the serving paths do not time, each beside
+#: one SDPA call at its dtype: (label, H, KV, hd, dtype); B 8, Tq 512, S
+#: 4096 as in ``time_kernels``
+PREFILL_ROWS = (
+    ("phi4-mini-3.8b smoke in bf16", 6, 2, 40, "bfloat16"),
+    ("whisper-large-v3 attention", 20, 20, 64, "bfloat16"),
+    ("hd 96", 24, 8, 96, "bfloat16"),
+    ("recurrentgemma-9b attention", 16, 1, 256, "bfloat16"),
+    ("qwen2.5-14b in f32 (card-vs-CPU layout)", 40, 8, 128, "float32"),
+)
+
+
+def time_hd32_bodies(seed: int, H: int = 32, KV: int = 8):
+    """hd 32 in bf16 at the prefill shapes of ``time_kernels``: the wgmma
+    body (rows padded to 64; an unscaled bf16 pool) against mma.sync at
+    its native width (the same pool with unit per-token scales, which
+    send it there), in turns.  Logs one line; the rule in
+    ``shapes.prefill_body`` sends unscaled bf16 pools at hd 32 to
+    wgmma."""
+    import torch
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, Tq, S, hd, bf16 = 8, 512, 4096, 32, torch.bfloat16
+    qp = torch.randn(B, Tq, H, hd, generator=g, device="cuda").to(bf16)
+    k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
+    v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
+    ones = torch.ones(B, S, device="cuda")
+    off = torch.tensor([0, 512, 1024, 1536, 2048, 2560, 3072, 3584],
+                       dtype=torch.int32).cuda()
+    before = dict(cpa.body_launches)
+    t = in_turns({
+        "wgmma": lambda: cpa.chunked_prefill_attention(qp, k, v, off),
+        "mma_sync": lambda: cpa.chunked_prefill_attention(qp, k, v, off,
+                                                          ones, ones)}, 10)
+    took = {b: cpa.body_launches[b] - before[b] for b in ("wgmma",
+                                                          "mma_sync")}
+    if not all(took.values()):
+        raise AssertionError(f"hd 32 bodies: launches {took}")
+    log(f"[time] hd 32 prefill bodies (B {B}, Tq {Tq}, S {S}, H {H}, KV "
+        f"{KV}, bf16): wgmma padded to 64 device {t['wgmma'][1]:.4f} ms "
+        f"(events {t['wgmma'][0]:.4f}); mma.sync at 32 with unit scales "
+        f"device {t['mma_sync'][1]:.4f} ms (events {t['mma_sync'][0]:.4f}); "
+        f"wgmma / mma.sync {t['wgmma'][1] / t['mma_sync'][1]:.3f}")
+    return t
+
+
+#: the cross terms of the 3xTF32 body's products (hi.lo, lo.hi):
+#: ``run_tf32_one_pass`` builds a copy of the source without them
+TF32_CROSS_TERMS = "  mma(d, al, bh0, bh1);\n  mma(d, ah, bl0, bl1);\n"
+
+
+def run_tf32_one_pass(seed: int):
+    """The f32 prefill bound (``PREFILL_TOL``) tells three TF32 passes
+    from one.  A copy of the prefill source without the cross terms of its
+    products (hi.hi alone: one TF32 pass) is built under ``build/``, and
+    f32 prefill cases run on it and on the real build at the same inputs:
+    the sweep's shape at every head dim of ``HEAD_DIMS`` and the phi4-mini
+    smoke layout at the timing shapes.  Fails unless the real build keeps
+    every case within the bound and the one-pass copy exceeds it in
+    every case."""
+    import ctypes
+    import subprocess
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    name = "chunked_prefill_attention"
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    if src.count(TF32_CROSS_TERMS) != 1:
+        raise AssertionError("tf32_one_pass: the cross terms of mma3 are "
+                             "not where this phase looks for them")
+    out_dir = _build.build_dir() / "tf32_one_pass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.cu").write_text(src.replace(TF32_CROSS_TERMS, ""))
+    t0 = time.monotonic()
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS,
+                    *_build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
+                    str(out_dir / f"{name}.cu")], check=True,
+                   capture_output=True, text=True)
+    one_pass = ctypes.CDLL(str(out_dir / f"{name}.so"))
+    built = time.monotonic() - t0
+    real = _build.load(name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gc_ = torch.Generator().manual_seed(seed)
+    tol = PREFILL_TOL["float32"][0]
+    shapes_ = [(2, 130, 300, 12, 2, hd) for hd in HEAD_DIMS]
+    shapes_.append((8, 512, 4096, 6, 2, 40))
+    rows = []
+    for B, Tq, S, H, KV, hd in shapes_:
+        q = torch.randn(B, Tq, H, hd, generator=g, device="cuda")
+        k = torch.randn(B, S, KV, hd, generator=g, device="cuda")
+        v = torch.randn(B, S, KV, hd, generator=g, device="cuda")
+        off = torch.randint(0, S - Tq + 1, (B,), generator=gc_).to(
+            torch.int32).cuda()
+        exp = ref.chunked_prefill_attention_ref(q, k, v, off)
+        errs = []
+        for lib in (real, one_pass):
+            _build._libs[name] = lib
+            try:
+                got = cpa.chunked_prefill_attention(q, k, v, off)
+            finally:
+                _build._libs[name] = real
+            torch.cuda.synchronize()
+            errs.append(float((got - exp).abs().max()))
+        rows.append((f"B{B} Tq{Tq} S{S} H{H} KV{KV} hd{hd}", *errs))
+    log(f"[tf32_one_pass] f32 prefill, max abs err of the 3xTF32 build / a "
+        f"one-pass (hi.hi) copy built in {built:.1f} s, bound {tol}: "
+        + "; ".join(f"{w}: {a:.3e} / {b:.3e}" for w, a, b in rows))
+    over = sum(b > tol for _, _, b in rows)
+    if any(not a <= tol for _, a, _ in rows) or over < len(rows):
+        raise AssertionError(f"tf32_one_pass: the bound {tol} does not tell "
+                             f"three passes from one: {rows}")
+    log(f"[tf32_one_pass] the one-pass copy exceeds {tol} in {over} of "
+        f"{len(rows)} cases; the 3xTF32 build keeps every case within it")
 
 
 def bound(n_bytes: float, flops: float,
@@ -1492,10 +1797,14 @@ def run_tp_card_vs_cpu(seed: int, n_layers: int = 2, prompt_len: int = 300,
         0, cfg.vocab_size, prompt_len).astype(np.int32)
     kw = dict(n_slots=2, max_len=prompt_len + steps + 8, max_chunk=512)
     counts = {}
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    before = dict(cpa.body_launches)
     with torch.no_grad(), launches_by_heads(counts):
         engines = [InstanceEngine(cfg, host, **kw),
                    InstanceEngine(cfg, params, devices=[device] * 2, **kw)]
         (ref, got), _, fed, _ = greedy_pair(engines, prompt, steps)
+    bodies = {b: n - before[b] for b, n in cpa.body_launches.items()
+              if n != before[b]}
     scale = max(float(np.abs(r).max()) for r in ref)
     err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
     same = sum(int(a.argmax() == b.argmax()) for a, b in zip(got, ref))
@@ -1514,7 +1823,7 @@ def run_tp_card_vs_cpu(seed: int, n_layers: int = 2, prompt_len: int = 300,
         f"prefill {prompt_len} tokens + {steps} decode steps fed the CPU's "
         f"greedy tokens: logits max abs err {err:.3e} (tol {TP_F32_RTOL} x "
         f"max |logit| {scale:.3e}), argmax equal {same}/{steps + 1}; kernel "
-        f"calls {by_heads(counts)}")
+        f"calls {by_heads(counts)}; prefill launches by body {bodies}")
     del params, host, engines
     gc.collect()
     if device == "cuda":
@@ -1626,7 +1935,8 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
         def step(eng=eng, slot=slot, at=at):
             eng.run_batch([BatchItem(slot, tok, at[0], True)])
             at[0] += 1
-        dev_ms[n] = device_ms(step, 4) if device == "cuda" else float("nan")
+        dev_ms[n] = (device_ms(step, 4) if device == "cuda"
+                     else (float("nan"), "not timed"))
     ctx = prompt_len + steps // 2
     for n, walls in ((1, w1), (2, w2)):
         pred = BatchCostModel(cfg, H100, tp_degree=n).mixed_batch_latency(
@@ -1634,8 +1944,9 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
         meas = float(np.median(walls)) * 1e3
         log(f"[tp] decode step, one request at ~{ctx} tokens, width {n}"
             f"{' (two shards time-sharing the card)' if n > 1 else ''}: "
-            f"median wall {meas:.3f} ms, device {dev_ms[n]:.3f} ms "
-            f"(torch.profiler), idle share {1 - dev_ms[n] / meas:.3f}; the "
+            f"median wall {meas:.3f} ms, device {dev_ms[n][0]:.3f} ms "
+            f"({dev_ms[n][1]}), idle share {1 - dev_ms[n][0] / meas:.3f}; "
+            f"the "
             f"cost model (H100 data sheet, tp_degree={n}) prices it at "
             f"{pred * 1e3:.3f} ms, {meas / (pred * 1e3):.2f}x under the "
             f"wall; card {card}")
@@ -1839,6 +2150,10 @@ def run_launch(device="cuda"):
                 if n <= 0:
                     raise AssertionError(f"{name} was not launched by "
                                          f"{' '.join(argv)}")
+            # the smoke configs run in f32: every prefill on 3xTF32
+            if bodies.get("tf32") != launches["chunked_prefill_attention"]:
+                raise AssertionError(f"f32 prefill launches off the 3xTF32 "
+                                     f"body in {' '.join(argv)}: {bodies}")
     return launches
 
 
@@ -3050,15 +3365,18 @@ def main(argv=None) -> int:
 
     errs = {}
     times, moe_times, train_times, phi4_times = {}, {}, {}, {}
+    prefill_rows = {}
     if "kernels" in phases:
         errs = run_kernel_checks(args.seed)
-        times = time_kernels(args.seed, "qwen2.5-14b", 40, 8)
-        moe_times = time_kernels(args.seed, MOE_PATH, 32, 4)
-        train_times = time_kernels(args.seed, TRAIN_PATH, 24, 8)
-        # the launch phase's phi4-mini smoke layout (H 6, KV 2, hd 40,
-        # f32) at the serving shapes
-        phi4_times = time_kernels(args.seed, PHI4_SMOKE_PATH, 6, 2,
-                                  quant=False, hd=40, dtype="float32")
+        times, moe_times, train_times, phi4_times = (
+            time_kernels(args.seed, path, **layout)
+            for path, layout in TIMED_PATHS.items())
+        for label, H, KV, hd, dt in PREFILL_ROWS:
+            prefill_rows[label] = time_kernels(
+                args.seed, label, H, KV, quant=False, hd=hd, dtype=dt,
+                decode=False)["chunked_prefill_attention"]
+            torch.cuda.empty_cache()
+        time_hd32_bodies(args.seed)
         torch.cuda.empty_cache()
     if "model" in phases:
         run_model_check(args.seed)
@@ -3115,6 +3433,8 @@ def main(argv=None) -> int:
         launches.update(run_examples(card))
         gc.collect()
         torch.cuda.empty_cache()
+    if "tf32_one_pass" in phases:
+        run_tf32_one_pass(args.seed)
     if "profile" in phases:
         from repro_torch.configs import get_config
         for name in ("qwen2.5-14b", MOE_PATH) + DENSE_PATHS:
@@ -3139,6 +3459,7 @@ def main(argv=None) -> int:
             "launches": {path: n[name] for path, n in launches.items()},
             "max_abs_err": errs.get(name),
             "ms": t.get("ms"), "device_ms": t.get("device_ms"),
+            "timed_by": t.get("timed_by"),
             "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": t.get("library_ms"),
@@ -3151,7 +3472,9 @@ def main(argv=None) -> int:
             TRAIN_PATH: train_times.get(name),
             NEMOTRON_PATH: nemotron_times.get(name),
             PHI4_SMOKE_PATH: phi4_times.get(name),
-            **{path: t.get(name) for path, t in tp_times.items()}})
+            **{path: t.get(name) for path, t in tp_times.items()},
+            # prefill alone at the head dims of PREFILL_ROWS
+            **(prefill_rows if name == KERNELS[1] else {})})
     log(f"[total] phases {','.join(phases)} passed in "
         f"{time.monotonic() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -22,29 +22,43 @@
 // past Tq are never written, keys past S or past the frontier score
 // -1e30), so the wrapper pads nothing.  q, k and v are read through their
 // batch and row strides, so they may be row views of larger buffers.  The
-// body is chosen by dtype and shape before launch:
+// wrapper names the body by dtype and shape (shapes.prefill_body), and
+// the entry point launches it or, where it has no instance for the call,
+// returns cudaErrorInvalidValue:
 //
-// * bf16 queries at hd 128 or 192 on a bf16 pool (the serving path), or on
-//   an fp8 or int8 pool: TMA + wgmma, warp-specialised in the
-//   flash-attention-3 shape.  A CTA is three warpgroups.  The producer
+// * bf16 queries on a bf16 pool that carries no scales (the serving
+//   path), or on an fp8 or int8 pool whose head dim is a multiple of 16:
+//   TMA + wgmma, warp-specialised in the flash-attention-3 shape, at every
+//   head dim.  A row of hd elements is read as the next instance width
+//   in {64, 128, 192, 256}: the tensor maps carry the true hd as the row's
+//   extent and head stride, so the columns between hd and the instance
+//   width read as zeros (they add nothing to Q.K^T, and give O columns
+//   that are never written), and the epilogue writes hd columns.  A CTA
+//   is three warpgroups at widths 64 to 192.  The producer
 //   warpgroup gives up registers (setmaxnreg 24) and one of its threads
 //   loads the 128-row Q tile once, then K and V tiles of BK keys into a
-//   3-stage ring, each K and each V stage guarded by its own full and
-//   empty mbarriers.  The loads go through 4-D tensor maps (hd, heads,
-//   rows, B), so rows past Tq or S read as zero instead of as the next
-//   batch row (masked scores give P = 0, but 0 x NaN would still be NaN).
-//   A row is hd/64 boxes of 64 elements with 128-byte swizzle.  BK is 128
-//   at hd 128; at hd 192 the Q tile alone is 48 KB and a 128-key K or V
-//   tile another 48 KB, so three stages would need 336 KB: hd 192 takes
-//   64-key tiles (24 KB), 192 KB with Q.  The two consumer warpgroups
+//   ring of 3 stages (2 at width 256), each K and each V stage guarded by
+//   its own full and empty mbarriers.  ptxas allots a thread of a
+//   384-thread CTA 168 registers (setmaxnreg moves registers at run time,
+//   not in its allocation), and a consumer at width 256 holds 128 f32 of
+//   O, 32 of S and 16 registers of P: there the CTA is the two consumer
+//   warpgroups alone (255 registers a thread), and consumer thread 0
+//   issues the loads, each tile NSTG - 1 ahead into the stage both
+//   warpgroups have released.  The loads go through 4-D tensor
+//   maps (hd, heads, rows, B), so rows past Tq or S read as zero instead
+//   of as the next batch row (masked scores give P = 0, but 0 x NaN would
+//   still be NaN).  A row is width/64 boxes of 64 elements with 128-byte
+//   swizzle.  BK is 128 at widths 64 and 128; at 192 and 256 the Q tile
+//   alone is 48 or 64 KB and a 128-key K or V tile as much again, so they
+//   take 64-key tiles: 197,632 B with 3 stages at 192 and with 2 at 256.
+//   The two consumer warpgroups
 //   (setmaxnreg 240) own 64 query rows each.  S = Q.K^T is wgmma
 //   m64nBKk16 with both operands read from swizzled shared memory; the
 //   online softmax runs on the f32 accumulators in registers (log2
 //   domain); P goes, rounded to bf16, as register A-fragments into wgmma
-//   m64n(hd)k16 for O += P.V, with V read transposed through its
-//   descriptor (the three 64-column pieces of a 192-wide row one
-//   leading-byte offset apart).  At hd 192 a consumer thread holds 96 f32
-//   of O, 32 of S and 16 registers of P.  The grid
+//   m64n(width)k16 for O += P.V, with V read transposed through its
+//   descriptor (the 64-column pieces of a row one leading-byte offset
+//   apart).  The grid
 //   runs the q tiles with the most keys first.  Bound: operations (above),
 //   but the body is held by its softmax, not its products: with the
 //   softmax removed it runs in half the time.  So the softmax is lean: one
@@ -59,201 +73,79 @@
 //   once, which spills at the 168 registers ptxas allots a thread of a
 //   384-thread CTA.
 //   Quantized pools take the same pipeline with one more step: TMA loads
-//   the K and V codes (one byte each, a whole row a box, rows past S
-//   zero) into a staging tile (the K/V ring has 2 stages here, for room),
-//   and warps 1-3 of the
+//   the K and V codes (one byte each, a whole row of the instance width a
+//   box, rows past S and columns past hd zero) into a staging tile (the
+//   K/V ring has 2 stages here, for room), and warps 1-3 of the
 //   producer warpgroup (setmaxnreg 56, the consumers 224) convert them
 //   exactly to bf16 into the swizzled operand tile and copy the tile's
 //   per-key scales beside it.  The K scale multiplies the f32 scores and
 //   the V scale multiplies P before it is rounded to bf16, as in the
-//   mma.sync body below, so no dequantized copy is rounded.
-// * other bf16 queries at hd 32, 64 and 128 (f32 pools, bf16 pools that
-//   carry scales): tensor cores
+//   mma.sync body below, so no dequantized copy is rounded.  At widths 64
+//   and 256, where 168 registers spill, the CTA is the producer
+//   warpgroup and one consumer warpgroup (64 query rows, 255 registers a
+//   thread).  A tensor map
+//   needs 16-byte head strides, so one-byte codes take this body only at
+//   hd % 16 == 0; codes at other head dims take the 3xTF32 body (no
+//   mma.sync instance has such a width).
+// * bf16 queries on an f32 pool or a bf16 pool that carries scales, at hd
+//   32, 64 and 128: tensor cores
 //   through mma.sync m16n8k16 (bf16 in, f32 accumulate), flash-attention-2
 //   style.  Four warps each own 16 of the tile's 64 query rows and keep
 //   their Q fragments, scores, online-softmax state and output accumulator
 //   in registers; K and V tiles of 64 keys are staged in shared memory as
-//   bf16.  fp8 and int8 codes convert to bf16 exactly, and their per-token
-//   scales are applied to the f32 scores (K) and to the probabilities
-//   before the P.V product (V), so no dequantized copy is rounded.  The
+//   bf16.  The per-token scales are applied to the f32 scores (K) and to
+//   the probabilities before the P.V product (V), so no dequantized copy
+//   is rounded.  The
 //   probabilities enter the P.V product rounded to bf16, as in
 //   flash-attention-2.  Loads are not pipelined.
-// * f32 queries, and bf16 queries at a head dim with no tensor-core
-//   instance (any other multiple of 8 up to 256, such as 40 or 256): f32
-//   FMAs on tiles staged in shared memory as f32 (each thread owns a 4x4
-//   block of the score tile and a 4 x hd/8 block of the output, at most 32
-//   columns), so f32 callers get f32 arithmetic throughout.
+// * f32 queries on every pool, and every other call (bf16 queries on an
+//   f32 pool or a scaled bf16 pool at a head dim other than 32, 64 and
+//   128; on fp8 or int8 codes at hd % 16 != 0): 3xTF32 on the tensor
+//   cores, mma.sync m16n8k8 with tf32 operands and f32 accumulation.
+//   Every f32 operand x is split as hi = cvt.rna.tf32(x) and lo =
+//   cvt.rna.tf32(x - hi) (the rounding is written as two integer
+//   operations on the bits: add half a tf32 ulp, clear the low 13 bits;
+//   the same value for every finite x), and each product is hi.hi + hi.lo
+//   + lo.hi, for S = Q.K^T and again for P.V.  The lo.lo term left out
+//   and lo's own rounding are each below 2^-22 of the product, so a
+//   product keeps about 21 bits, against 24 in f32 and 11 in one TF32
+//   pass.  On unit-scale inputs the output is within 2e-6 to 1e-5 of the
+//   plain f32 version at hd 8 to 256 on an H100, where a one-pass build
+//   errs by 5e-4 to 1e-3 (chip_smoke.py --phases tf32_one_pass): f32
+//   callers still get f32 arithmetic in substance, held to 3e-5 by the
+//   card checks.  Four warps each own 16 of the CTA's 64
+//   query rows.  hd % 8 == 0 is exactly the tf32 k-step, and P.V's n-step
+//   is 8, so every head dim runs unpadded.  Q is staged once in shared
+//   memory as f32 and its fragments are read and split per tile; O and
+//   the scores stay in registers.  K and V tiles of 64 keys, as f32 with
+//   a row pitch of hd + 4 (conflict-free fragment reads both for K's rows
+//   and for V's columns), take turns in two slots: each tile is in flight
+//   while the one before it is used (a third slot would leave room for
+//   one CTA an SM at hd 128, not two).  f32
+//   pools arrive by cp.async (rows past the frontier zero-filled), other
+//   pools are converted exactly to f32 as they are stored.  The score accumulators become the
+//   A fragments of P without a shuffle: P.V's key order is permuted (key
+//   2t of an 8-key step is its k-index t, key 2t + 1 its k-index t + 4),
+//   and V's fragments are read in the same order.  Scales, masking (-1e30,
+//   l floored at 1e-30) and the causal frontier of each q tile are those of
+//   the other bodies.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 32;        // keys per loop step
-constexpr int THREADS = 128;  // 16 row groups x 8 column lanes
-constexpr int MAX_K = 32;     // hd / 8, so hd <= 256
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-size_t smem_bytes(int hd) {
-  const int ld = hd + 1;
-  return sizeof(float) * (BQ * ld + BK * ld + BK * hd + BQ * (BK + 1));
-}
-
-// MAXK: the output block a thread holds, hd / 8 columns at most
-template <typename TQ, typename TKV, int MAXK>
-__global__ void __launch_bounds__(THREADS)
-chunked_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                       const TKV* __restrict__ v, const int* __restrict__ offsets,
-                       const float* __restrict__ ks, const float* __restrict__ vs,
-                       TQ* __restrict__ out, int Tq, int S, int H, int KV, int hd,
-                       long long sqb, long long sqt, long long skb, long long sks,
-                       float scale) {
-  extern __shared__ float smem[];
-  const int ld = hd + 1;           // padded row stride: conflict-free column reads
-  float* q_s = smem;               // BQ x ld
-  float* k_s = q_s + BQ * ld;      // BK x ld
-  float* v_s = k_s + BK * ld;      // BK x hd
-  float* p_s = v_s + BK * hd;      // BQ x (BK+1)
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int qpk = H / KV, kvh = h / qpk;
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int nk = hd / 8;
-  const int off = offsets[b];
-
-  for (int e = tid; e < BQ * hd; e += THREADS) {
-    const int r = e / hd, d = e - r * hd;
-    const int t = q0 + r;
-    q_s[r * ld + d] = t < Tq ? to_f(q[b * sqb + t * sqt + (size_t)h * hd + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][MAXK];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < MAXK; ++kk) acc[i][kk] = 0.f;
-  }
-
-  const int q_last = min(q0 + BQ, Tq) - 1;
-  const int kv_end = min(S, off + q_last + 1);   // causal frontier of the tile
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();   // Q staged / previous step done with k_s, v_s, p_s
-    for (int e = tid; e < BK * hd; e += THREADS) {
-      const int c = e / hd, d = e - c * hd;
-      const int s = k0 + c;
-      float kf = 0.f, vf = 0.f;
-      if (s < kv_end) {
-        const size_t idx = b * skb + s * sks + (size_t)kvh * hd + d;
-        kf = to_f(k[idx]);
-        vf = to_f(v[idx]);
-        if (ks) kf *= ks[(size_t)b * S + s];
-        if (vs) vf *= vs[(size_t)b * S + s];
-      }
-      k_s[c * ld + d] = kf;
-      v_s[c * hd + d] = vf;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = q_s[(ty * 4 + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = k_s[(tx + 8 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] += qa[i] * kb[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qpos = off + q0 + r;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        const float s = (kpos <= qpos && kpos < kv_end) ? sc[i][j] * scale : NEG_INF;
-        sc[i][j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - mx);
-        sum += p;
-        p_s[r * (BK + 1) + tx + 8 * j] = p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      const float alpha = expf(m[i] - mx);
-      l[i] = l[i] * alpha + sum;
-      m[i] = mx;
-#pragma unroll
-      for (int kk = 0; kk < MAXK; ++kk) acc[i][kk] *= alpha;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < BK; ++c) {
-      float pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = p_s[(ty * 4 + i) * (BK + 1) + c];
-#pragma unroll
-      for (int kk = 0; kk < MAXK; ++kk) {
-        if (kk < nk) {
-          const float vv = v_s[c * hd + tx + 8 * kk];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][kk] += pa[i] * vv;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= Tq) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    TQ* orow = out + (((size_t)b * Tq + t) * H + h) * hd;
-#pragma unroll
-    for (int kk = 0; kk < MAXK; ++kk)
-      if (kk < nk) orow[tx + 8 * kk] = from_f<TQ>(acc[i][kk] * inv_l);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 queries: tensor cores
-// ---------------------------------------------------------------------------
-constexpr int MBQ = 64;       // query rows per CTA (16 per warp)
-constexpr int MBK = 64;       // keys per loop step
-constexpr int MTHREADS = 128;
 
 // 2^x in one MUFU instruction (subnormal results flush to 0)
 __device__ __forceinline__ float ex2(float x) {
@@ -274,6 +166,301 @@ __device__ __forceinline__ uint32_t pack_h(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// f32 queries, and every call without a bf16 instance: 3xTF32
+// ---------------------------------------------------------------------------
+namespace tf {
+
+constexpr int BQ = 64;          // query rows per CTA, 16 per warp
+constexpr int BK = 64;          // keys per K or V tile
+constexpr int THREADS = 128;
+constexpr int NB = BK / 8;      // 8-key steps of a tile
+
+// x rounded to the nearest tf32, ties away from zero (cvt.rna.tf32.f32)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a tf32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col); tf32 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b as three TF32 products: the cross terms, then hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// eight consecutive elements as f32 (exact for every pool type)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = to_f(e[i]);
+}
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&f)[8]) {   // one-byte codes
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = to_f(e[i]);
+}
+
+// four consecutive query elements as f32
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  return make_float4(to_f(e[0]), to_f(e[1]), to_f(e[2]), to_f(e[3]));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_f(a, b);
+}
+
+// Shared memory of a CTA: the Q tile, two K/V tiles and their per-key scales.
+inline size_t smem_bytes(int hd) {
+  const size_t ld = hd + 4;
+  return sizeof(float) * (BQ * ld + 2 * BK * (ld + 1));
+}
+
+// NO: O's 8-column blocks a warp holds, hd / 8 at most
+template <typename TQ, typename TKV, int NO>
+__global__ void __launch_bounds__(THREADS)
+chunked_prefill_tf32_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                            const TKV* __restrict__ v, const int* __restrict__ offsets,
+                            const float* __restrict__ ks, const float* __restrict__ vs,
+                            TQ* __restrict__ out, int Tq, int S, int H, int KV, int hd,
+                            long long sqb, long long sqt, long long skb, long long sks,
+                            float scale_log2) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = hd + 4;
+  float* q_s = smem;                        // BQ x ld
+  float* ring = q_s + BQ * ld;              // 2 x BK x ld: K and V tiles in turn
+  float* sc_s = ring + 2 * BK * ld;         // 2 x BK: each tile's per-key scales
+
+  // grid (H, B, q tiles), the q tiles with the most keys first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ, h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int off = offsets[b];
+  const int kv_end = min(S, off + min(q0 + BQ, Tq));   // causal frontier of the tile
+  const int n_loads = 2 * ((kv_end + BK - 1) / BK);    // K and V of every tile
+  const int nk = hd / 8;
+
+  for (int e = tid; e < BQ * (hd / 4); e += THREADS) {
+    const int r = e / (hd / 4), c = (e - r * (hd / 4)) * 4;
+    const int t = q0 + r;
+    const float4 val = t < Tq ? load4(q + b * sqb + t * sqt + (size_t)h * hd + c)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(q_s + r * ld + c) = val;
+  }
+
+  // load j: the K (j even) or V (j odd) tile j / 2 into slot j % 2; keys
+  // past the frontier read as zero.
+  auto load = [&](int j) {
+    if (j < n_loads) {
+      const int k0 = (j >> 1) * BK;
+      const TKV* src = (j & 1) ? v : k;
+      const float* plane = (j & 1) ? vs : ks;
+      float* dst = ring + (j & 1) * BK * ld;
+      if constexpr (sizeof(TKV) == 4) {
+        const int cpr = hd / 4;   // 16-byte chunks of a row
+        for (int e = tid; e < BK * cpr; e += THREADS) {
+          const int r = e / cpr, c = (e - r * cpr) * 4, s = k0 + r;
+          const bool in = s < kv_end;
+          cp_async16(dst + r * ld + c, in ? src + b * skb + s * sks + (size_t)kvh * hd + c : src,
+                     in);
+        }
+      } else {
+        const int cpr = hd / 8;   // 8-element chunks of a row
+        for (int e = tid; e < BK * cpr; e += THREADS) {
+          const int r = e / cpr, c = (e - r * cpr) * 8, s = k0 + r;
+          float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          if (s < kv_end) load8(src + b * skb + s * sks + (size_t)kvh * hd + c, f);
+          *reinterpret_cast<float4*>(dst + r * ld + c) = make_float4(f[0], f[1], f[2], f[3]);
+          *reinterpret_cast<float4*>(dst + r * ld + c + 4) = make_float4(f[4], f[5], f[6], f[7]);
+        }
+      }
+      if (plane != nullptr) {
+        float* sdst = sc_s + (j & 1) * BK;
+        for (int r = tid; r < BK; r += THREADS) {
+          const int s = k0 + r;
+          cp_async4(sdst + r, s < kv_end ? plane + (size_t)b * S + s : plane, s < kv_end);
+        }
+      }
+    }
+    cp_commit();
+  };
+
+  const int r0 = warp * 16;                            // this warp's rows r0 .. r0 + 15
+  const int qpos0 = off + q0 + r0 + gid, qpos1 = qpos0 + 8;
+  const int qpos_min = off + q0 + r0;
+  float o[NO][4], sc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // rows gid, gid + 8
+
+  load(0);
+  for (int j = 0; j < n_loads; ++j) {
+    cp_wait_all();
+    __syncthreads();              // load j landed; every warp is done with the other slot
+    load(j + 1);                  // into the other slot
+    const float* tile = ring + (j & 1) * BK * ld;
+    const float* tsc = sc_s + (j & 1) * BK;
+    const int k0 = (j >> 1) * BK;
+    if ((j & 1) == 0) {
+      // S = Q K^T for this warp's 16 rows x BK keys
+#pragma unroll
+      for (int jj = 0; jj < NB; ++jj) sc[jj][0] = sc[jj][1] = sc[jj][2] = sc[jj][3] = 0.f;
+      for (int kk = 0; kk < nk; ++kk) {
+        const float* qa = q_s + (r0 + gid) * ld + kk * 8 + tig;
+        uint32_t ah[4], al[4];
+        split(qa[0], ah[0], al[0]);
+        split(qa[8 * ld], ah[1], al[1]);
+        split(qa[4], ah[2], al[2]);
+        split(qa[8 * ld + 4], ah[3], al[3]);
+#pragma unroll
+        for (int jj = 0; jj < NB; ++jj) {
+          const float* kb = tile + (jj * 8 + gid) * ld + kk * 8 + tig;
+          mma3(sc[jj], ah, al, kb[0], kb[4]);
+        }
+      }
+      // scale (K's per-key scale on the f32 scores), mask, online softmax
+      // in the log2 domain; P stays in sc
+      const bool edge = k0 + BK - 1 > qpos_min || k0 + BK > kv_end;
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int jj = 0; jj < NB; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = jj * 8 + tig * 2 + e, key = k0 + col;
+          const float f = ks != nullptr ? scale_log2 * tsc[col] : scale_log2;
+          float x0 = sc[jj][e] * f, x1 = sc[jj][2 + e] * f;
+          if (edge) {
+            x0 = (key <= qpos0 && key < kv_end) ? x0 : NEG_INF;
+            x1 = (key <= qpos1 && key < kv_end) ? x1 : NEG_INF;
+          }
+          sc[jj][e] = x0;
+          sc[jj][2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= a0;
+      l1 *= a1;
+      // a masked score minus a live row's maximum is about -1e30, whose
+      // exp2 is 0; a row with no live score yet subtracts 0 instead
+      const float s0 = mx0 <= 0.5f * NEG_INF ? 0.f : mx0;
+      const float s1 = mx1 <= 0.5f * NEG_INF ? 0.f : mx1;
+#pragma unroll
+      for (int jj = 0; jj < NB; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(sc[jj][e] - (e < 2 ? s0 : s1));
+          sc[jj][e] = p;
+          if (e < 2) l0 += p; else l1 += p;
+        }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+    } else {
+      // O += P V.  The keys of an 8-key step are taken in the order of the
+      // score accumulators: key 2 tig is k-index tig, key 2 tig + 1 is
+      // k-index tig + 4, so sc[jj] is P's A fragment as it stands (V's
+      // scale folded in before the split) and V's fragment is read in
+      // the same order.
+#pragma unroll
+      for (int jj = 0; jj < NB; ++jj) {
+        float f0 = 1.f, f1 = 1.f;
+        if (vs != nullptr) {
+          f0 = tsc[jj * 8 + tig * 2];
+          f1 = tsc[jj * 8 + tig * 2 + 1];
+        }
+        uint32_t ah[4], al[4];
+        split(sc[jj][0] * f0, ah[0], al[0]);
+        split(sc[jj][2] * f0, ah[1], al[1]);
+        split(sc[jj][1] * f1, ah[2], al[2]);
+        split(sc[jj][3] * f1, ah[3], al[3]);
+        const float* vb = tile + (jj * 8 + tig * 2) * ld + gid;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          if (n < nk) mma3(o[n], ah, al, vb[n * 8], vb[ld + n * 8]);
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int t0 = q0 + r0 + gid, t1 = t0 + 8;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (n >= nk) continue;
+    const int col = n * 8 + tig * 2;
+    if (t0 < Tq)
+      store2(out + (((size_t)b * Tq + t0) * H + h) * hd + col, o[n][0] * inv0, o[n][1] * inv0);
+    if (t1 < Tq)
+      store2(out + (((size_t)b * Tq + t1) * H + h) * hd + col, o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+}  // namespace tf
+
+// ---------------------------------------------------------------------------
+// bf16 queries on f32 pools or scaled bf16 pools: mma.sync
+// ---------------------------------------------------------------------------
+constexpr int MBQ = 64;       // query rows per CTA (16 per warp)
+constexpr int MBK = 64;       // keys per loop step
+constexpr int MTHREADS = 128;
+
 // d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -284,7 +471,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// eight consecutive elements as bf16 (exact for bf16, fp8-e4m3 and int8)
+// eight consecutive elements as bf16 (f32 rounded to nearest)
 __device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
@@ -465,24 +652,37 @@ chunked_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __res
 }
 
 // ---------------------------------------------------------------------------
-// bf16 queries at hd 128 or 192 on a bf16, fp8 or int8 pool: TMA + wgmma,
-// warp-specialised
+// bf16 queries on an unscaled bf16 pool, or on fp8 or int8 codes at
+// hd % 16 == 0: TMA + wgmma, warp-specialised, at instance widths 64, 128,
+// 192 and 256
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int BQ = 128;              // query rows per CTA, 64 per consumer warpgroup
-constexpr int THREADS = 384;         // producer warpgroup + two consumer warpgroups
 constexpr int BOX = 64;              // elements in one 128-byte swizzled box row
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SMEM_MAX = 232448;  // the shared memory a CTA may hold
 
-// The tiles of one head dim: a row of HD elements is NP pieces of 64
-// (128 bytes, swizzled), K/V tiles hold BK keys.  hd 128 takes 128-key
-// tiles; hd 192 takes 64-key tiles, so that its Q tile (48 KB) and three
-// stages of K and V (24 KB each) fit the 227 KB a CTA may hold.
-template <int HD_, int BK_>
+// The tiles of one instance: a row of HD elements (the head dim rounded
+// up to HD) is NP pieces of 64 (128 bytes, swizzled), K/V tiles hold BK
+// keys, and NC consumer warpgroups own 64 query rows each.  Widths 64
+// and 128 take 128-key tiles; 192 and 256 take 64-key tiles, so that the
+// Q tile (48 or 64 KB) and the K/V ring (24 or 32 KB a tile) fit the 227
+// KB a CTA may hold.  A producer warpgroup (one TMA thread and, for
+// one-byte codes, three converter warps) comes first, unless SELF: then
+// a consumer thread issues the loads.  ptxas allots a thread of a
+// 384-thread CTA 168 registers whatever setmaxnreg later moves, and a
+// consumer at width 256 needs about 200 (128 f32 of O alone), so width
+// 256 runs 256-thread CTAs (255 registers a thread): two consumer
+// warpgroups that load for themselves (bf16), or the producer warpgroup
+// and one consumer warpgroup (codes, which need the converters; also at
+// width 64, where 168 registers spill).
+template <int HD_, int BK_, int NC_ = 2, bool SELF_ = false>
 struct Tile {
   static constexpr int HD = HD_;
   static constexpr int BK = BK_;
+  static constexpr int NC = NC_;
+  static constexpr bool SELF = SELF_;
+  static constexpr int BQ = 64 * NC;                       // query rows per CTA
+  static constexpr int THREADS = 128 * (NC + (SELF ? 0 : 1));
   static constexpr int NP = HD / BOX;          // 128-byte pieces of a row
   static constexpr int Q_PIECE = BQ * 128;     // bytes of one piece of the Q tile
   static constexpr int KV_PIECE = BK * 128;    // bytes of one piece of a K or V tile
@@ -496,11 +696,13 @@ struct Tile {
     return Q_BYTES + 2 * nst * KV_BYTES + 1024 +
            (quant ? 2 * CODE_BYTES + 2 * nst * BK * sizeof(float) : 0);
   }
+  // stages of the K/V ring: 3 where they fit; quantized pools keep 2 for
+  // the staging tiles, and at width 256 three bf16 stages (256 KB with Q)
+  // do not fit
+  static constexpr int stages(bool quant) {
+    return !quant && smem_bytes(3, false) <= SMEM_MAX ? 3 : 2;
+  }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
@@ -574,7 +776,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d);
 // d += A (64x16, registers) * B (16xN, shared memory, MN-major); N is the
-// head dim (128 or 192)
+// instance width (64, 128, 192 or 256)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db);
@@ -611,6 +813,20 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <>
@@ -659,6 +875,38 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // fp8 or int8 codes of one 16-code chunk as 16 bf16 values (exact), in two
 // 16-byte halves
 template <typename TKV>
@@ -677,17 +925,19 @@ __device__ __forceinline__ void codes_to_bf16(const uint4& raw, uint4& lo, uint4
 // swizzled operand tiles; fp8 or int8 codes go by TMA into a staging tile
 // and warps 1-3 of the producer warpgroup convert them into the operand
 // tile (and copy the tile's per-key scales beside it).  T is the Tile of
-// the head dim.
+// the instance width; hd, the true head dim, is the row the epilogue
+// writes.
 template <typename TKV, int NSTG, typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(T::THREADS, 1)
 chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const int* __restrict__ offsets, const float* __restrict__ ks,
                              const float* __restrict__ vs, __nv_bfloat16* __restrict__ out,
-                             int Tq, int S, int H, int KV, float scale_log2) {
+                             int Tq, int S, int H, int KV, int hd, float scale_log2) {
   constexpr bool QUANT = sizeof(TKV) == 1;
-  constexpr int HD = T::HD, BK = T::BK, NP = T::NP;
+  constexpr int HD = T::HD, BK = T::BK, NP = T::NP, BQ = T::BQ, NC = T::NC;
+  static_assert(!(QUANT && T::SELF), "codes need the producer warpgroup's converters");
   constexpr int Q_PIECE = T::Q_PIECE, KV_PIECE = T::KV_PIECE;
   constexpr int Q_BYTES = T::Q_BYTES, KV_BYTES = T::KV_BYTES, CODE_BYTES = T::CODE_BYTES;
   extern __shared__ unsigned char smem_raw[];
@@ -725,8 +975,8 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < NSTG; ++s) {
       mbar_init(&k_full[s], QUANT ? 3 : 1);   // TMA, or lane 0 of each converter warp
       mbar_init(&v_full[s], QUANT ? 3 : 1);
-      mbar_init(&k_empty[s], 8);              // lane 0 of each consumer warp
-      mbar_init(&v_empty[s], 8);
+      mbar_init(&k_empty[s], 4 * NC);         // lane 0 of each consumer warp
+      mbar_init(&v_empty[s], 4 * NC);
     }
     mbar_init(kc_full, 1);
     mbar_init(vc_full, 1);
@@ -737,40 +987,49 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
+  // one thread issues every TMA load: the Q tile, then the K and V
+  // tiles (bf16: into the ring; codes: into the staging tiles)
+  auto load_q = [&]() {
+    mbar_expect_tx(q_full, Q_BYTES);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) tma_load(q_s + pc * Q_PIECE, &tq, q_full, pc * BOX, h, q0, b);
+  };
+  auto load_tile = [&](int it) {
+    const int st = it % NSTG, ph = (it / NSTG) & 1, k0 = it * BK;
+    if constexpr (QUANT) {
+      mbar_wait(kc_empty, (it & 1) ^ 1);
+      mbar_expect_tx(kc_full, CODE_BYTES);
+      tma_load(kc_s, &tk, kc_full, 0, kvh, k0, b);
+      mbar_wait(vc_empty, (it & 1) ^ 1);
+      mbar_expect_tx(vc_full, CODE_BYTES);
+      tma_load(vc_s, &tv, vc_full, 0, kvh, k0, b);
+    } else {
+      unsigned char* kd = k_s + st * KV_BYTES;
+      unsigned char* vd = v_s + st * KV_BYTES;
+      mbar_wait(&k_empty[st], ph ^ 1);
+      mbar_expect_tx(&k_full[st], KV_BYTES);
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc)
+        tma_load(kd + pc * KV_PIECE, &tk, &k_full[st], pc * BOX, kvh, k0, b);
+      mbar_wait(&v_empty[st], ph ^ 1);
+      mbar_expect_tx(&v_full[st], KV_BYTES);
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc)
+        tma_load(vd + pc * KV_PIECE, &tv, &v_full[st], pc * BOX, kvh, k0, b);
+    }
+  };
+
+  if (!T::SELF && threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps TMA loads in flight ----
-    if constexpr (QUANT)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    else
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (T::THREADS == 384) {
+      if constexpr (QUANT)
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+      else
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    }
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, Q_BYTES);
-#pragma unroll
-      for (int pc = 0; pc < NP; ++pc) tma_load(q_s + pc * Q_PIECE, &tq, q_full, pc * BOX, h, q0, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % NSTG, ph = (it / NSTG) & 1, k0 = it * BK;
-        if constexpr (QUANT) {
-          mbar_wait(kc_empty, (it & 1) ^ 1);
-          mbar_expect_tx(kc_full, CODE_BYTES);
-          tma_load(kc_s, &tk, kc_full, 0, kvh, k0, b);
-          mbar_wait(vc_empty, (it & 1) ^ 1);
-          mbar_expect_tx(vc_full, CODE_BYTES);
-          tma_load(vc_s, &tv, vc_full, 0, kvh, k0, b);
-        } else {
-          unsigned char* kd = k_s + st * KV_BYTES;
-          unsigned char* vd = v_s + st * KV_BYTES;
-          mbar_wait(&k_empty[st], ph ^ 1);
-          mbar_expect_tx(&k_full[st], KV_BYTES);
-#pragma unroll
-          for (int pc = 0; pc < NP; ++pc)
-            tma_load(kd + pc * KV_PIECE, &tk, &k_full[st], pc * BOX, kvh, k0, b);
-          mbar_wait(&v_empty[st], ph ^ 1);
-          mbar_expect_tx(&v_full[st], KV_BYTES);
-#pragma unroll
-          for (int pc = 0; pc < NP; ++pc)
-            tma_load(vd + pc * KV_PIECE, &tv, &v_full[st], pc * BOX, kvh, k0, b);
-        }
-      }
+      load_q();
+      for (int it = 0; it < n_tiles; ++it) load_tile(it);
     } else if constexpr (QUANT) {
       // ---- converter warps: staged codes -> swizzled bf16 operand tile ----
       if (threadIdx.x < 32) return;
@@ -812,11 +1071,13 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    if constexpr (QUANT)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-    else
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int c = threadIdx.x / 128 - 1;
+    if constexpr (T::THREADS == 384) {
+      if constexpr (QUANT)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+      else
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    }
+    const int c = T::SELF ? threadIdx.x / 128 : threadIdx.x / 128 - 1;
     const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
     const int tig = lane & 3;
     const int r0 = c * 64 + warp * 16 + (lane >> 2);   // rows r0 and r0 + 8 of the tile
@@ -925,10 +1186,22 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // two warpgroups interleave on their own).  P is packed once its V
     // tile has landed (quantized pools: its V scales arrive with it), and
     // a K stage is released only after the softmax has read its scales.
+    // SELF: thread 0 loads Q and the first NSTG tiles, then, at the top of
+    // each step, the tile NSTG - 1 ahead into the stage both warpgroups
+    // have just released.
+    if constexpr (T::SELF) {
+      if (threadIdx.x == 0) {
+        load_q();
+        for (int it = 0; it < min(NSTG, n_tiles); ++it) load_tile(it);
+      }
+    }
     mbar_wait(q_full, 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int st = it % NSTG, ph = (it / NSTG) & 1;
       float a0, a1;
+      if constexpr (T::SELF) {
+        if (threadIdx.x == 0 && it > 0 && it + NSTG - 1 < n_tiles) load_tile(it + NSTG - 1);
+      }
       mbar_wait(&k_full[st], ph);
       pin(sc);
       wg_fence();
@@ -958,11 +1231,12 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = j * 8 + tig * 2;
+      if (col >= hd) break;   // the padded columns of the instance width
       if (t0 < Tq)
-        *reinterpret_cast<uint32_t*>(out + (((size_t)b * Tq + t0) * H + h) * HD + col) =
+        *reinterpret_cast<uint32_t*>(out + (((size_t)b * Tq + t0) * H + h) * hd + col) =
             pack_f(o[j * 4] * inv0, o[j * 4 + 1] * inv0);
       if (t1 < Tq)
-        *reinterpret_cast<uint32_t*>(out + (((size_t)b * Tq + t1) * H + h) * HD + col) =
+        *reinterpret_cast<uint32_t*>(out + (((size_t)b * Tq + t1) * H + h) * hd + col) =
             pack_f(o[j * 4 + 2] * inv1, o[j * 4 + 3] * inv1);
     }
   }
@@ -973,8 +1247,8 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-// The body each call took, reported back to the wrapper's counters.
-enum Body { BODY_FMA = 0, BODY_MMA_SYNC = 1, BODY_WGMMA = 2 };
+// The bodies, by the code the wrapper passes (shapes.PREFILL_BODIES).
+enum Body { BODY_TF32 = 0, BODY_MMA_SYNC = 1, BODY_WGMMA = 2 };
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1003,19 +1277,22 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D map (hd, heads, rows, B) over a tensor of `esize`-byte elements
-// whose box is one row piece x 1 head x box_rows rows x 1 batch row: 64
-// bf16 elements (128 bytes) with 128-byte swizzle, or a whole row of hd
-// one-byte codes unswizzled.  Rows past `rows` read as zero, so a tile
-// never sees the next batch row's data.
-cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int heads,
-                     int rows, int B, long long s_row, long long s_b, int box_rows) {
+// whose box is box_cols elements x 1 head x box_rows rows x 1 batch row:
+// 64 bf16 elements (128 bytes) with 128-byte swizzle, or a whole row of
+// the instance width in one-byte codes unswizzled.  hd is the true head
+// dim: the row's extent and the head stride.  Columns past hd and rows
+// past `rows` read as zero, so a tile never sees the next head's or the
+// next batch row's data.
+cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int box_cols,
+                     int heads, int rows, int B, long long s_row, long long s_b,
+                     int box_rows) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const bool codes = esize == 1;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * esize, (cuuint64_t)s_row * esize,
                                  (cuuint64_t)s_b * esize};
-  const cuuint32_t box[4] = {(cuuint32_t)(codes ? hd : wg::BOX), 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUresult r = enc(map, codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                    4, const_cast<void*>(base), dims, strides, box, estr,
@@ -1028,25 +1305,28 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int 
 template <typename TKV, typename T>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* offsets,
                          const void* ks, const void* vs, void* out, int B, int Tq, int S,
-                         int H, int KV, long long sqb, long long sqt, long long skb,
+                         int H, int KV, int hd, long long sqb, long long sqt, long long skb,
                          long long sks, float scale, cudaStream_t stream) {
   constexpr int esize = (int)sizeof(TKV);
-  constexpr int nst = esize == 1 ? 2 : 3;   // quantized: room for the staging tiles
+  constexpr int nst = T::stages(esize == 1);
   constexpr size_t smem = T::smem_bytes(nst, esize == 1);
-  static_assert(smem <= 232448, "a CTA holds at most 227 KB of shared memory");
+  static_assert(smem <= wg::SMEM_MAX, "a CTA holds at most 227 KB of shared memory");
+  // the true hd for the rows' extent and stride; the instance width for
+  // the code boxes
+  const int kv_box = esize == 1 ? T::HD : wg::BOX;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, 2, T::HD, H, Tq, B, sqt, sqb, wg::BQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, esize, T::HD, KV, S, B, sks, skb, T::BK);
-  if (err == cudaSuccess) err = make_map(&tv, v, esize, T::HD, KV, S, B, sks, skb, T::BK);
+  cudaError_t err = make_map(&tq, q, 2, hd, wg::BOX, H, Tq, B, sqt, sqb, T::BQ);
+  if (err == cudaSuccess) err = make_map(&tk, k, esize, hd, kv_box, KV, S, B, sks, skb, T::BK);
+  if (err == cudaSuccess) err = make_map(&tv, v, esize, hd, kv_box, KV, S, B, sks, skb, T::BK);
   if (err != cudaSuccess) return err;
   auto kern = wg::chunked_prefill_wgmma_kernel<TKV, nst, T>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(H, B, (Tq + wg::BQ - 1) / wg::BQ);
-  kern<<<grid, wg::THREADS, smem, stream>>>(
+  dim3 grid(H, B, (Tq + T::BQ - 1) / T::BQ);
+  kern<<<grid, T::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<const int*>(offsets), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), Tq, S, H, KV,
-      scale * wg::LOG2E);
+      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), Tq, S, H, KV, hd,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1071,17 +1351,21 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// The wgmma tiles of each head dim that has them (see wg::Tile).
+// The wgmma instance of each head dim: hd rounded up to the next width in
+// {64, 128, 192, 256}, in CTAs of 256 threads where 384 would spill (see
+// wg::Tile).
 template <typename TKV>
 cudaError_t launch_wgmma_hd(int hd, const void* q, const void* k, const void* v,
                             const void* offsets, const void* ks, const void* vs, void* out,
                             int B, int Tq, int S, int H, int KV, long long sqb, long long sqt,
                             long long skb, long long sks, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 128: return launch_wgmma<TKV, wg::Tile<128, 128>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-    case 192: return launch_wgmma<TKV, wg::Tile<192, 64>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-    default: return cudaErrorInvalidValue;   // no instance: never read a row as another width
-  }
+  constexpr bool quant = sizeof(TKV) == 1;
+  using T64 = wg::Tile<64, 128, quant ? 1 : 2>;
+  using T256 = std::conditional_t<quant, wg::Tile<256, 64, 1>, wg::Tile<256, 64, 2, true>>;
+  if (hd <= 64) return launch_wgmma<TKV, T64>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+  if (hd <= 128) return launch_wgmma<TKV, wg::Tile<128, 128>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+  if (hd <= 192) return launch_wgmma<TKV, wg::Tile<192, 64>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+  return launch_wgmma<TKV, T256>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
 }
 
 template <typename TKV>
@@ -1097,76 +1381,67 @@ cudaError_t launch_mma_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename TQ, typename TKV, int MAXK>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, const void* offsets,
-                       const void* ks, const void* vs, void* out, int B, int Tq, int S,
-                       int H, int KV, int hd, long long sqb, long long sqt, long long skb,
-                       long long sks, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hd);
-  auto kern = chunked_prefill_kernel<TQ, TKV, MAXK>;
+// The 3xTF32 body: O's column blocks sized for hd up to 64, 128 or 256.
+template <typename TQ, typename TKV>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* offsets,
+                        const void* ks, const void* vs, void* out, int B, int Tq, int S,
+                        int H, int KV, int hd, long long sqb, long long sqt, long long skb,
+                        long long sks, float scale, cudaStream_t stream) {
+  const size_t smem = tf::smem_bytes(hd);
+  auto kern = hd <= 64 ? tf::chunked_prefill_tf32_kernel<TQ, TKV, 8>
+              : hd <= 128 ? tf::chunked_prefill_tf32_kernel<TQ, TKV, 16>
+                          : tf::chunked_prefill_tf32_kernel<TQ, TKV, 32>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kern<<<grid, THREADS, smem, stream>>>(
+  dim3 grid(H, B, (Tq + tf::BQ - 1) / tf::BQ);
+  kern<<<grid, tf::THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<const int*>(offsets), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<TQ*>(out), Tq, S, H, KV, hd, sqb, sqt,
-      skb, sks, scale);
+      skb, sks, scale * LOG2E);
   return cudaGetLastError();
 }
 
-// hd <= 128 keeps the narrower output block (and its registers); wider
-// rows take up to MAX_K
-template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* offsets,
-                   const void* ks, const void* vs, void* out, int B, int Tq, int S,
-                   int H, int KV, int hd, long long sqb, long long sqt, long long skb,
-                   long long sks, float scale, cudaStream_t stream) {
-  if (hd <= 128)
-    return launch_fma<TQ, TKV, 16>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
-  return launch_fma<TQ, TKV, MAX_K>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
-}
-
-// Which body a call takes is decided here, by dtype and shape, before any
-// launch: bf16 queries at hd 128 or 192 on a bf16 pool (the serving path)
-// or on an fp8 or int8 pool take TMA + wgmma; other bf16 queries at hd
-// 32, 64 and 128 (f32 pools, bf16 pools that carry scales) take mma.sync;
-// f32 queries, and bf16 queries at every other head dim, take f32 FMAs.
+// Launch the body the wrapper names (repro_torch/kernels/shapes.py ::
+// prefill_body decides it).  A body without an instance for the call
+// returns cudaErrorInvalidValue: TMA + wgmma takes bf16 queries on an
+// unscaled bf16 pool, or on fp8 or int8 codes at hd % 16 == 0 (a tensor
+// map's 16-byte head stride); mma.sync takes bf16 queries on an f32 or a
+// bf16 pool at hd 32, 64 and 128; 3xTF32 takes every call.
 template <typename TQ>
-cudaError_t launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
+cudaError_t launch_kv(int body, int kv_dtype, const void* q, const void* k, const void* v,
                       const void* offsets, const void* ks, const void* vs, void* out,
                       int B, int Tq, int S, int H, int KV, int hd, long long sqb,
                       long long sqt, long long skb, long long sks, float scale,
-                      cudaStream_t stream, int* body) {
-  if (sizeof(TQ) == 2 && (hd == 128 || hd == 192) &&
-      (kv_dtype == 2 || kv_dtype == 3 || (kv_dtype == 1 && ks == nullptr))) {
-    *body = BODY_WGMMA;
-    switch (kv_dtype) {
-      case 1: return launch_wgmma_hd<__nv_bfloat16>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 2: return launch_wgmma_hd<__nv_fp8_e4m3>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 3: return launch_wgmma_hd<int8_t>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (sizeof(TQ) == 2 && (hd == 32 || hd == 64 || hd == 128)) {
-    *body = BODY_MMA_SYNC;
-    switch (kv_dtype) {
-      case 0: return launch_mma_hd<float>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 1: return launch_mma_hd<__nv_bfloat16>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 2: return launch_mma_hd<__nv_fp8_e4m3>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      case 3: return launch_mma_hd<int8_t>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  *body = BODY_FMA;
-  switch (kv_dtype) {
-    case 0: return launch<TQ, float>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
-    case 1: return launch<TQ, __nv_bfloat16>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
-    case 2: return launch<TQ, __nv_fp8_e4m3>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
-    case 3: return launch<TQ, int8_t>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+                      cudaStream_t stream) {
+  const bool bf16q = sizeof(TQ) == 2, codes = kv_dtype == 2 || kv_dtype == 3;
+  switch (body) {
+    case BODY_WGMMA:
+      if (!bf16q || !((kv_dtype == 1 && ks == nullptr) || (codes && hd % 16 == 0)))
+        return cudaErrorInvalidValue;
+      switch (kv_dtype) {
+        case 1: return launch_wgmma_hd<__nv_bfloat16>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+        case 2: return launch_wgmma_hd<__nv_fp8_e4m3>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+        default: return launch_wgmma_hd<int8_t>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+      }
+    case BODY_MMA_SYNC:
+      if (!bf16q) return cudaErrorInvalidValue;
+      switch (kv_dtype) {
+        case 0: return launch_mma_hd<float>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+        case 1: return launch_mma_hd<__nv_bfloat16>(hd, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, sqb, sqt, skb, sks, scale, stream);
+        default: return cudaErrorInvalidValue;
+      }
+    case BODY_TF32:
+      switch (kv_dtype) {
+        case 0: return launch_tf32<TQ, float>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+        case 1: return launch_tf32<TQ, __nv_bfloat16>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+        case 2: return launch_tf32<TQ, __nv_fp8_e4m3>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+        case 3: return launch_tf32<TQ, int8_t>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+        default: return cudaErrorInvalidValue;
+      }
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1174,33 +1449,33 @@ cudaError_t launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // The head layouts this kernel takes (repro_torch/kernels/shapes.py holds
-// the same rule): hd a multiple of 8 up to 8 * MAX_K, and a whole number
-// of query heads for each KV head.
+// the same rule): hd a multiple of 8 up to 256, and a whole number of
+// query heads for each KV head.
 static bool supported(int hd, int H, int KV) {
-  return hd % 8 == 0 && hd >= 8 && hd <= 8 * MAX_K && KV > 0 && H > 0 && H % KV == 0;
+  return hd % 8 == 0 && hd >= 8 && hd <= 256 && KV > 0 && H > 0 && H % KV == 0;
 }
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float8_e4m3fn, 3 int8.
 // q (B,Tq,H,hd) with strides (sqb, sqt, hd, 1); k/v (B,S,KV,hd) with
 // strides (skb, sks, hd, 1), in elements, so q/k/v may be row views of
 // larger buffers; offsets (B,) int32; ks/vs (B,S) float32 or null; out
-// (B,Tq,H,hd) contiguous.  Tensor-core bodies need q, k, v and out 16-byte
-// aligned and row strides that are multiples of 8 elements.  *body gets
-// the body the call took (0 f32 FMA, 1 mma.sync, 2 TMA + wgmma).
+// (B,Tq,H,hd) contiguous.  Every body needs q, k, v and out 16-byte
+// aligned and row strides that are multiples of 16 bytes.  body: 0
+// 3xTF32, 1 mma.sync, 2 TMA + wgmma.
 extern "C" int chunked_prefill_attention(const void* q, const void* k, const void* v,
                                          const void* offsets, const void* ks,
                                          const void* vs, void* out, int B, int Tq,
                                          int S, int H, int KV, int hd, long long sqb,
                                          long long sqt, long long skb, long long sks,
                                          int q_dtype, int kv_dtype, float scale,
-                                         int* body, void* stream) {
+                                         int body, void* stream) {
   if (!supported(hd, H, KV) || B <= 0 || Tq <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (q_dtype) {
-    case 0: err = launch_kv<float>(kv_dtype, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, s, body); break;
-    case 1: err = launch_kv<__nv_bfloat16>(kv_dtype, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, s, body); break;
+    case 0: err = launch_kv<float>(body, kv_dtype, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, s); break;
+    case 1: err = launch_kv<__nv_bfloat16>(body, kv_dtype, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

@@ -6,17 +6,23 @@ It replaces the Pallas TPU kernel
 together with its padding wrapper ``ops.chunked_prefill_attention_op``:
 the CUDA kernel masks ragged Tq and S edges itself, so nothing is
 padded.  It takes every head layout of ``kernels.shapes`` (hd a
-multiple of 8 up to 256).  The kernel picks its body by dtype and shape
-before it launches: bf16 queries at hd 128 or 192 on a bf16 pool (the
-serving path) or an fp8 or int8 pool run a TMA + ``wgmma`` body, other
-bf16 queries at hd 32, 64 and 128 (f32 pools) run ``mma.sync``, and f32
-queries, and bf16 queries at any other head dim, take f32 FMAs.  The
-wrapper checks its inputs, allocates the output, and launches on
-PyTorch's current stream; it raises on anything the kernel does not
-take.  q, k and v may be row views of larger buffers (their
-last two dimensions contiguous): the kernel reads through their strides
-and never past Tq or S.  ``launches`` counts the launches it made and
-``body_launches`` splits them by the body the kernel reported.
+multiple of 8 up to 256).  The wrapper names one of three tensor-core
+bodies by dtype and shape (``shapes.prefill_body``) and the kernel
+launches it: bf16 queries on an unscaled bf16 pool
+(the serving path), or on fp8 or int8 codes at hd % 16 == 0, run a TMA
++ ``wgmma`` body at every head dim (rows padded to the next width in
+64, 128, 192, 256); bf16 queries on an f32 pool or a scaled bf16 pool
+at hd 32, 64 and 128 run ``mma.sync``; every other call, f32 queries
+included, runs 3xTF32 (f32 operands split into two TF32 halves, three
+products each: about 21 bits a product, so f32 callers get f32
+accuracy in substance).  The wrapper checks
+its inputs, allocates the output, and launches on PyTorch's current
+stream; it raises on anything the kernel does not take (the C entry
+point refuses a body it has no instance of for the call).  q, k and v may
+be row views of larger buffers (their last two dimensions contiguous):
+the kernel reads through their strides and never past Tq or S.
+``launches`` counts the launches it made and ``body_launches`` splits
+them by body.
 """
 from __future__ import annotations
 
@@ -30,13 +36,13 @@ from repro_torch.kernels import _build, shapes
 
 #: kernel launches made by this wrapper (tests and chip_smoke.py reset it)
 launches = 0
-#: the same launches by the body the kernel took, as it reports them
-BODIES = ("fma", "mma_sync", "wgmma")
+#: the same launches by body
+BODIES = shapes.PREFILL_BODIES
 body_launches = dict.fromkeys(BODIES, 0)
 _counting = threading.Lock()
 
 _SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
-        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                 ctypes.c_void_p])
 
 
@@ -100,17 +106,17 @@ def chunked_prefill_attention(q, k, v, offsets, k_scales=None,
     if k.stride() != v.stride():     # one set of strides serves both
         k, v = k.contiguous(), v.contiguous()
     out = torch.empty(B, Tq, H, hd, dtype=q.dtype, device=q.device)
-    body = ctypes.c_int(-1)
+    body = shapes.prefill_body(q.dtype, k.dtype, hd, ks is not None)
     status = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(),
                     0 if ks is None else ks.data_ptr(),
                     0 if vs is None else vs.data_ptr(), out.data_ptr(),
                     B, Tq, S, H, KV, hd, q.stride(0), q.stride(1),
                     k.stride(0), k.stride(1), _build.dtype_code(q),
                     _build.dtype_code(k), 1.0 / math.sqrt(hd),
-                    ctypes.byref(body),
+                    BODIES.index(body),
                     torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "chunked_prefill_attention")
+    _build.check(status, f"chunked_prefill_attention ({body} body)")
     with _counting:             # the shards of a sharded step launch at once
         launches += 1
-        body_launches[BODIES[body.value]] += 1
+        body_launches[body] += 1
     return out

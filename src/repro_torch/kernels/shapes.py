@@ -6,6 +6,11 @@ row in 8-element vectors and keep per-row state in registers, which
 bounds them: ``hd`` a multiple of 8 from 8 to 256, and a whole number of
 query heads for each KV head.  The rule is checked here, by both
 wrappers, and again by both C entry points in ``csrc/``.
+
+``prefill_body`` decides which of its three bodies the prefill kernel
+takes for a call: the wrapper passes the body's code to the C entry
+point, which launches that body or, where it has no instance for the
+call, refuses it.
 """
 from __future__ import annotations
 
@@ -27,3 +32,39 @@ def check(hd: int, H: int, KV: int, what: str) -> None:
     if not supported(hd, H, KV):
         raise ValueError(f"{what}: unsupported head layout hd={hd} H={H} "
                          f"KV={KV}; the CUDA kernels take {RULE}")
+
+
+#: the bodies of the prefill kernel, each on the tensor cores, in the
+#: order of the codes the CUDA entry point takes
+PREFILL_BODIES = ("tf32", "mma_sync", "wgmma")
+#: the one-byte code pools
+CODE_DTYPES = ("float8_e4m3fn", "int8")
+#: the head dims of the ``mma.sync`` instances
+MMA_SYNC_HEAD_DIMS = (32, 64, 128)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def prefill_body(q_dtype, kv_dtype, hd: int, scaled: bool) -> str:
+    """The body ``chunked_prefill_attention`` takes for queries of
+    ``q_dtype`` over a pool of ``kv_dtype`` (dtypes or their names) at
+    head dim ``hd``, with per-token scales or without:
+
+    * ``"wgmma"`` (TMA + ``wgmma``): bf16 queries on a bf16 pool without
+      scales, or on fp8 or int8 codes at ``hd % 16 == 0``, at every head
+      dim (a row is read as the next width in 64, 128, 192, 256; a tensor
+      map needs 16-byte head strides, which one-byte codes have only at
+      multiples of 16);
+    * ``"mma_sync"``: bf16 queries on an f32 pool or a scaled bf16 pool at
+      hd 32, 64 and 128;
+    * ``"tf32"`` (3xTF32): every other call, f32 queries included."""
+    q, kv = _dtype_name(q_dtype), _dtype_name(kv_dtype)
+    if q == "bfloat16":
+        if (kv == "bfloat16" and not scaled) or (kv in CODE_DTYPES
+                                                 and hd % 16 == 0):
+            return "wgmma"
+        if kv in ("float32", "bfloat16") and hd in MMA_SYNC_HEAD_DIMS:
+            return "mma_sync"
+    return "tf32"

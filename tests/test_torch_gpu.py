@@ -27,32 +27,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("H,KV,hd", [
-    (40, 8, 128),     # Qwen2.5-14B (qpk 5)
-    (12, 2, 40),      # phi4-mini's smoke config
-    (96, 8, 192),     # Nemotron-4-340B (qpk 12)
-    (8, 2, 256),      # the widest row the kernels take
+@pytest.mark.parametrize("H,KV,hd,dtype", [
+    (40, 8, 128, "bfloat16"),     # Qwen2.5-14B (qpk 5)
+    (12, 2, 40, "bfloat16"),      # phi4-mini's smoke config
+    (96, 8, 192, "bfloat16"),     # Nemotron-4-340B (qpk 12)
+    (8, 2, 256, "bfloat16"),      # the widest row the kernels take
+    (40, 8, 128, "float32"),      # the 14B's f32 card-vs-CPU layout
+    (12, 2, 40, "float32"),       # phi4-mini's smoke config as it runs
 ])
 @pytest.mark.parametrize("prec", [None, "fp8", "int8"])
-def test_cuda_kernels_match_plain_versions(cuda_device, prec, H, KV, hd):
+def test_cuda_kernels_match_plain_versions(cuda_device, prec, H, KV, hd,
+                                           dtype):
     """Both CUDA kernels against their plain versions on the card, bf16
-    queries, at four head layouts; tolerance 2e-2 for the bf16 rounding
-    of the output on unit-scale inputs.  hd 128 and 192 prefill on the
-    wgmma body, hd 40 and 256 on the f32 FMA body."""
+    and f32 queries (unquantized pools in the queries' dtype), at six
+    head layouts; tolerance 2e-2 for the bf16 rounding of the output on
+    unit-scale inputs, 1e-4 for f32 decode and 3e-5 for f32 prefill (the
+    3xTF32 body keeps about 21 bits a product; one TF32 pass errs by 5e-4
+    or more here).  Prefill takes the body that
+    ``shapes.prefill_body`` names: bf16 queries on bf16, fp8 and int8
+    pools take wgmma at every width but fp8 and int8 at hd 40 (3xTF32:
+    no 16-byte head stride for a tensor map), f32 queries take 3xTF32."""
     from repro_torch.kernels import chunked_prefill_attention as cpa
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import shapes
     g = torch.Generator(device=cuda_device).manual_seed(0)
     B, page, n_pp = 4, 8, 16
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)
+    tol, prefill_tol = (2e-2, 2e-2) if dtype == "bfloat16" else (1e-4, 3e-5)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=cuda_device)
 
     def kv(x):
-        return (x.to(bf16), None) if prec is None else \
+        return (x.to(dt), None) if prec is None else \
             ops.quantize_kv(x, prec)
 
-    q = randn(B, H, hd).to(bf16)
+    q = randn(B, H, hd).to(dt)
     kp, ks = kv(randn(B * n_pp, page, KV, hd))
     vp, vs = kv(randn(B * n_pp, page, KV, hd))
     tbl = torch.randperm(B * n_pp, device=cuda_device).reshape(B, n_pp).int()
@@ -61,9 +71,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, prec, H, KV, hd):
     got = pda.paged_decode_attention(q, kp, vp, tbl, lens, ks, vs)
     exp = ref.paged_decode_attention_ref(q, kp, vp, tbl, lens, ks, vs)
     torch.cuda.synchronize()
-    assert float((got.float() - exp.float()).abs().max()) < 2e-2
+    assert float((got.float() - exp.float()).abs().max()) < tol
     Tq, S = 40, 128
-    qc = randn(B, Tq, H, hd).to(bf16)
+    qc = randn(B, Tq, H, hd).to(dt)
     k, kcs = kv(randn(B, S, KV, hd))
     v, vcs = kv(randn(B, S, KV, hd))
     off = torch.tensor([0, 7, 50, 88], dtype=torch.int32, device=cuda_device)
@@ -71,8 +81,54 @@ def test_cuda_kernels_match_plain_versions(cuda_device, prec, H, KV, hd):
     got = cpa.chunked_prefill_attention(qc, k, v, off, kcs, vcs)
     exp = ref.chunked_prefill_attention_ref(qc, k, v, off, kcs, vcs)
     torch.cuda.synchronize()
-    assert float((got.float() - exp.float()).abs().max()) < 2e-2
-    body = "wgmma" if hd in (128, 192) else "fma"
+    assert float((got.float() - exp.float()).abs().max()) < prefill_tol
+    body = shapes.prefill_body(qc.dtype, k.dtype, hd, kcs is not None)
+    assert body == ("tf32" if dtype == "float32" or (prec and hd % 16)
+                    else "wgmma")
+    assert cpa.body_launches[body] == before[body] + 1
+
+
+@pytest.mark.parametrize("prec", [None, "fp8", "int8"])
+@pytest.mark.parametrize("hd", [40, 96, 200])
+def test_chunked_prefill_padded_width_reads_its_own_head(cuda_device, hd,
+                                                         prec):
+    """At a head dim below its instance width (40 -> 64, 96 -> 128, 200 ->
+    256) a row must be read at its true extent and head stride.  q, k and
+    v are row views of buffers laid out (B, rows, 2, heads, hd) whose
+    second half of every row (the head after each valid one, with one KV
+    head) and whose rows past Tq and S hold NaN (int8: the extreme code):
+    the output is finite and equals the plain version's on the views."""
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels.ref import as_indexable
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, Tq, S, H, KV, pad = 2, 130, 300, 2, 1, 24
+    bf16 = torch.bfloat16
+    qb = torch.randn(B, Tq + pad, 2, H, hd, generator=g,
+                     device=cuda_device).to(bf16)
+    kb, ks = _pool(torch.randn(B, S + pad, 2, KV, hd, generator=g,
+                               device=cuda_device), prec)
+    vb, vs = _pool(torch.randn(B, S + pad, 2, KV, hd, generator=g,
+                               device=cuda_device), prec)
+    if ks is not None:
+        ks, vs = ks[:, :S, 0].contiguous(), vs[:, :S, 0].contiguous()
+    qb[:, :, 1] = float("nan")
+    qb[:, Tq:] = float("nan")
+    bad = 127.0 if prec == "int8" else float("nan")
+    for t in (kb, vb):
+        for rows in ((slice(None), slice(None), 1), (slice(None),
+                                                      slice(S, None))):
+            as_indexable(t)[rows] = as_indexable(torch.full_like(
+                t[rows], bad, dtype=torch.float32).to(t.dtype))
+    q, k, v = qb[:, :Tq, 0], kb[:, :S, 0], vb[:, :S, 0]
+    off = torch.tensor([170, 0], dtype=torch.int32, device=cuda_device)
+    before = dict(cpa.body_launches)
+    got = cpa.chunked_prefill_attention(q, k, v, off, ks, vs)
+    exp = ref.chunked_prefill_attention_ref(q, k, v, off, ks, vs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - exp.float()).abs()
+    assert float((diff - 2 ** -7 * exp.float().abs()).max()) <= 2e-2
+    body = "wgmma" if prec is None or hd % 16 == 0 else "tf32"
     assert cpa.body_launches[body] == before[body] + 1
 
 
