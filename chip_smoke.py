@@ -31,12 +31,31 @@ exits non-zero without the final result line:
              in turns.  f32 prefill is held to 3e-5 (the 3xTF32 body).
 4. model   — Qwen2.5-14B at full width and 2 layers, paged forward once
              through the kernels and once through the plain attention.
+4b. graphs — the compiled step: for Qwen2.5-14B at full width and 2
+             layers on bf16, fp8 and int8 pools, and RecurrentGemma-9B and
+             Mamba2-780M at full width and 4 layers on the dense cache, an
+             eager engine (``graphs=False``) and a graphed one on the same
+             weights take the same items (prefill chunks in three T
+             buckets, a mixed batch, 8 decode steps): logits bit-equal and
+             every cache tensor byte-equal after every step, every
+             capture's all-inactive warm-up leaving the caches' bytes as
+             they were, equal launch counts, and no synchronizing call in
+             ``dispatch_batch`` of a prefill, a mixed and a decode step
+             under ``torch.cuda.set_sync_debug_mode("error")``; captures,
+             their seconds and the shared graph pool's bytes.
 5. serve   — full Qwen2.5-14B (48 layers, random weights from a seed)
              serving 8 requests through ServeSession(EngineBackend,
              DynaServePolicy) on two instances that share the card; the
              kernels' launch counters (and the prefill kernel's per-body
              counters) are zeroed just before this run and read just
-             after.  Then the same requests under colocation.
+             after.  Then the same requests under colocation.  Then 8
+             decode steps (8 slots, context 1024) of an eager and of a
+             graphed engine: wall time a step (CUDA events) and device
+             time (torch.profiler).  Every serving run of a one-device
+             engine in every phase but ``tp`` goes through CUDA graphs
+             (checked step by step), and its launch counts must equal
+             the eager step's for the same steps (one a paged attention
+             layer and shard).
 6. nemotron — Nemotron-4-340B (H 96, KV 8, hd 192; LayerNorm, squared
              ReLU, half rotary): (a) both kernels against their plain
              versions at its head layout and the serving shapes, bf16, fp8
@@ -60,7 +79,9 @@ exits non-zero without the final result line:
              weights: two /v1/completions, one streamed
              /v1/chat/completions, /metrics, clean shutdown.
 9. tp      — tensor- and expert-parallel instances, two shards
-             time-sharing the card: (a) both kernels against their plain
+             time-sharing the card, every step eager (sharded instances
+             run no graphs; the phase's width-1 engines take
+             ``graphs=False``): (a) both kernels against their plain
              versions and timed at the shards' head counts (Qwen2.5-14B
              H 20 / KV 4, Qwen3-30B-A3B H 16 / KV 2); (b) Qwen2.5-14B at
              full width and 2 layers, f32, a TP=2 instance on the card
@@ -132,9 +153,10 @@ exits non-zero without the final result line:
 
 Optional, not in the default run: ``--phases profile`` profiles prefill
 and decode steps of one engine each of Qwen2.5-14B, Qwen3-30B-A3B,
-RecurrentGemma-9B and Mamba2-780M (device time by kernel class, MoE
-routing and dispatch apart, the dense attention and the scans apart, and
-the device's idle share).  ``--phases tf32_one_pass`` builds a copy of
+RecurrentGemma-9B and Mamba2-780M, eager and then graphed (device time
+by kernel class, MoE routing and dispatch apart, the dense attention
+and the scans apart where the step is eager, and the device's idle
+share).  ``--phases tf32_one_pass`` builds a copy of
 the prefill source whose 3xTF32 products keep only hi.hi (one TF32 pass)
 and shows that f32 prefill's 3e-5 bound fails it while the real build
 keeps within it.
@@ -156,7 +178,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "model", "serve", "nemotron", "moe", "http", "tp",
+PHASES = ("kernels", "model", "graphs", "serve", "nemotron", "moe", "http",
+          "tp",
           "launch", "dense", "train", "dryrun", "examples")  # default
 EXTRA_PHASES = ("profile", "tf32_one_pass")  # only when asked for
 
@@ -975,10 +998,13 @@ def time_hd32_bodies(seed: int, H: int = 32, KV: int = 8):
     """hd 32 in bf16 at the prefill shapes of ``time_kernels``: the wgmma
     body (rows padded to 64; an unscaled bf16 pool) against mma.sync at
     its native width (the same pool with unit per-token scales, which
-    send it there), in turns.  Logs one line; the rule in
-    ``shapes.prefill_body`` sends unscaled bf16 pools at hd 32 to
-    wgmma."""
+    send it there), and one SDPA call at the shape, in turns.  Logs one
+    line; the rule in ``shapes.prefill_body`` sends unscaled bf16 pools at
+    hd 32 to wgmma.  Returns the ``mma.sync`` call's row (the body of
+    bf16 queries on f32 or scaled bf16 pools at hd 32, 64 and 128): its
+    times, bound and SDPA's."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import chunked_prefill_attention as cpa
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, Tq, S, hd, bf16 = 8, 512, 4096, 32, torch.bfloat16
@@ -986,13 +1012,20 @@ def time_hd32_bodies(seed: int, H: int = 32, KV: int = 8):
     k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
     v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(bf16)
     ones = torch.ones(B, S, device="cuda")
-    off = torch.tensor([0, 512, 1024, 1536, 2048, 2560, 3072, 3584],
-                       dtype=torch.int32).cuda()
+    offs = [0, 512, 1024, 1536, 2048, 2560, 3072, 3584]
+    off = torch.tensor(offs, dtype=torch.int32).cuda()
+    qd = qp.transpose(1, 2)
+    kd = k.transpose(1, 2).repeat_interleave(H // KV, 1)
+    vd = v.transpose(1, 2).repeat_interleave(H // KV, 1)
+    qpos = off[:, None] + torch.arange(Tq, device="cuda")[None]
+    mask = (torch.arange(S, device="cuda")[None, None] <= qpos[..., None])
     before = dict(cpa.body_launches)
     t = in_turns({
         "wgmma": lambda: cpa.chunked_prefill_attention(qp, k, v, off),
         "mma_sync": lambda: cpa.chunked_prefill_attention(qp, k, v, off,
-                                                          ones, ones)}, 10)
+                                                          ones, ones),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[:, None])}, 10)
     took = {b: cpa.body_launches[b] - before[b] for b in ("wgmma",
                                                           "mma_sync")}
     if not all(took.values()):
@@ -1002,7 +1035,25 @@ def time_hd32_bodies(seed: int, H: int = 32, KV: int = 8):
         f"(events {t['wgmma'][0]:.4f}); mma.sync at 32 with unit scales "
         f"device {t['mma_sync'][1]:.4f} ms (events {t['mma_sync'][0]:.4f}); "
         f"wgmma / mma.sync {t['wgmma'][1] / t['mma_sync'][1]:.3f}")
-    return t
+    # the mma.sync call: bf16 q and out, bf16 K/V rows and their f32
+    # scales read once, the offsets; the causal products
+    visible = sum(min(S, o + i + 1) for o in offs for i in range(Tq))
+    keys = sum(min(S, o + Tq) for o in offs)
+    row = dict(ms=t["mma_sync"][0], device_ms=t["mma_sync"][1],
+               timed_by=t["mma_sync"][2], library_ms=t["sdpa"][0],
+               library_device_ms=t["sdpa"][1], body="mma_sync",
+               **bound(2 * B * Tq * H * hd * 2 + 2 * keys * (KV * hd * 2 + 4)
+                       + B * 4, 4 * visible * H * hd),
+               shape=f"B={B} Tq={Tq} S={S} H={H} KV={KV} hd={hd} "
+                     f"offsets={offs} bfloat16, unit per-token scales")
+    log(f"[time] chunked_prefill_attention (mma_sync body), hd 32, bf16 "
+        f"queries on a scaled bf16 pool: device {row['device_ms']:.4f} ms "
+        f"(events {row['ms']:.4f}); bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.3f} of "
+        f"it on the device; SDPA device {row['library_device_ms']:.4f} ms "
+        f"(events {row['library_ms']:.4f}), device time / SDPA device time "
+        f"{row['device_ms'] / row['library_device_ms']:.3f}")
+    return row
 
 
 #: the cross terms of the 3xTF32 body's products (hi.lo, lo.hi):
@@ -1200,7 +1251,7 @@ def make_requests(seed: int, vocab: int, prefill_heavy=(1024, 2048, 16),
 
 def serve(cfg, params, reqs, policy: str, *, n_slots=8, n_pages=4096,
           page=8, max_chunk=512, transfer_chunk=128, slo=0.1,
-          devices_per_instance=1):
+          devices_per_instance=1, graphs=True):
     from repro_torch.core.session import ServeSession, SessionConfig
     from repro_torch.engine.backend import EngineBackend
     from repro_torch.sim.policies import ColocationPolicy, DynaServePolicy
@@ -1209,7 +1260,8 @@ def serve(cfg, params, reqs, policy: str, *, n_slots=8, n_pages=4096,
                             page_size=page, n_pages=n_pages,
                             max_chunk=max_chunk,
                             transfer_chunk=transfer_chunk,
-                            devices_per_instance=devices_per_instance)
+                            devices_per_instance=devices_per_instance,
+                            graphs=graphs)
     pol = (DynaServePolicy(backend.cost, slo, transfer_chunk=transfer_chunk)
            if policy == "dynaserve"
            else ColocationPolicy(chunk=max_chunk, slo_aware=False))
@@ -1228,6 +1280,56 @@ def serve(cfg, params, reqs, policy: str, *, n_slots=8, n_pages=4096,
     return outs, sess.metrics(), backend.kv_bytes_moved, wall
 
 
+@contextlib.contextmanager
+def step_tally():
+    """Count every engine step while it runs: all of them, those a CUDA
+    graph ran, and the paged kernel launches the eager step makes for
+    them (one a paged attention layer and shard: ``paged_decode_attention``
+    at T == 1, ``chunked_prefill_attention`` otherwise), which a graphed
+    run's counters must equal; and each engine's captures and their
+    seconds.  For the report and that check; the port never does this."""
+    from repro_torch.engine import runner
+    cls = runner.InstanceEngine
+    dispatch = cls.dispatch_batch
+    tally = {"steps": 0, "graphed": 0,
+             "eager_launches": dict.fromkeys(KERNELS, 0), "captures": {}}
+
+    def counted(self, items):
+        handle = dispatch(self, items)
+        if handle is not None:
+            tally["steps"] += 1
+            tally["graphed"] += int(self.graphs)
+            if self.paged:
+                kernel = KERNELS[0 if max(len(it.tokens) for it in items)
+                                 == 1 else 1]
+                tally["eager_launches"][kernel] += self.cfg.n_layers * \
+                    self.tp
+            tally["captures"][id(self)] = (self.captures,
+                                           self.capture_seconds)
+        return handle
+
+    cls.dispatch_batch = counted
+    try:
+        yield tally
+    finally:
+        cls.dispatch_batch = dispatch
+
+
+def tally_line(tally) -> str:
+    n = sum(c for c, _ in tally["captures"].values())
+    sec = sum(t for _, t in tally["captures"].values())
+    return (f"{tally['graphed']} of {tally['steps']} steps through CUDA "
+            f"graphs, {n} captures in {sec:.2f} s")
+
+
+def check_graphed(tally, what: str, device: str, eager: bool = False):
+    """On the card every step replays a graph, unless the run was to be
+    eager (sharded instances, or ``graphs=False``)."""
+    want = 0 if eager or device != "cuda" else tally["steps"]
+    if tally["graphed"] != want:
+        raise AssertionError(f"{what}: {tally_line(tally)}, not {want}")
+
+
 def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
                   **sizes):
     """Serve through DynaServe (a main path) with the kernels' launch
@@ -1243,17 +1345,35 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
     pda.launches = 0
     cpa.launches = 0
     cpa.body_launches = dict.fromkeys(cpa.BODIES, 0)
-    outs, m, moved, wall = serve(cfg, params, reqs, "dynaserve", **sizes)
+    with step_tally() as tally:
+        outs, m, moved, wall = serve(cfg, params, reqs, "dynaserve",
+                                     **sizes)
     launches = {"paged_decode_attention": pda.launches,
                 "chunked_prefill_attention": cpa.launches}
     bodies = dict(cpa.body_launches)
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    held = torch.cuda.max_memory_reserved() if device == "cuda" else 0
+    pool = graph_pool_bytes(device) if device == "cuda" else 0
     if moved <= 0:
         raise AssertionError("no KV handoff: DynaServe split no request")
     report(label, m, moved, wall, card)
+    eager = sizes.get("devices_per_instance", 1) != 1 or \
+        not sizes.get("graphs", True)
     log(f"[serve] {label} kernel launches: {launches}; "
         f"chunked_prefill_attention by body: {bodies}; max allocated in "
-        f"the run {peak / 1e9:.3f} GB")
+        f"the run {peak / 1e9:.3f} GB, max reserved {held / 1e9:.3f} GB "
+        f"(the graph pool's temporaries are reserved, not allocated, "
+        f"while a graph replays; the pool holds "
+        f"{'not measured' if pool is None else f'{pool / 1e9:.3f} GB'} at "
+        f"the end); {tally_line(tally)}"
+        f"{' (the tp phase runs eager steps)' if eager else ''}; "
+        f"the eager step launches {tally['eager_launches']} for these "
+        f"steps")
+    check_graphed(tally, label, device, eager)
+    if device == "cuda" and launches != tally["eager_launches"]:
+        raise AssertionError(f"{label}: launches counted {launches}, the "
+                             f"eager step's for the same steps "
+                             f"{tally['eager_launches']}")
     if device == "cuda":
         for name, n in launches.items():
             if n <= 0:
@@ -1265,11 +1385,84 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
     return outs, launches, peak
 
 
+def time_decode(cfg, params, card: str, n_slots: int = 8, ctx: int = 1024,
+                chunk: int = 512, steps: int = 8, device="cuda"):
+    """``steps`` decode steps of every slot of one engine at context
+    ``ctx``, eager (``graphs=False``) and then graphed, each mode on its
+    own engine: wall time a step from CUDA events around the loop (each
+    step dispatched and its logits collected, as the session does),
+    device time a step from torch.profiler over the same loop run again,
+    and the idle share 1 - device / wall.  Returns {mode: (wall ms,
+    device ms)}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine import BatchItem, InstanceEngine
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (n_slots, ctx)).astype(np.int32)
+    out = {}
+    for mode in ("eager", "graphed"):
+        eng = InstanceEngine(cfg, params, n_slots=n_slots, page_size=8,
+                             n_pages=n_slots * (ctx + chunk) // 8,
+                             max_chunk=chunk, max_len=ctx + chunk,
+                             graphs=mode == "graphed")
+        slots = [eng.alloc(f"r{i}") for i in range(n_slots)]
+        for lo in range(0, ctx, chunk):
+            eng.run_batch([BatchItem(s, toks[i, lo:lo + chunk], lo)
+                           for i, s in enumerate(slots)])
+        pos = [ctx]
+
+        def decode():
+            eng.run_batch([BatchItem(s, toks[i, :1], pos[0], True)
+                           for i, s in enumerate(slots)])
+            pos[0] += 1
+
+        decode()
+        decode()                     # the key is captured (graphed)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(steps):
+            decode()
+        end.record()
+        torch.cuda.synchronize()
+        wall = start.elapsed_time(end) / steps
+        busy = 0.0
+        for _ in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    decode()
+                torch.cuda.synchronize()
+            busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+            if busy > 0:
+                break
+        dev = busy / steps / 1e3
+        out[mode] = (wall, dev)
+        log(f"[serve] {cfg.name} decode step, {mode} "
+            f"({'one CUDA graph a (T, n_pp) key' if mode == 'graphed' else 'graphs=False'}"
+            f"): B={n_slots}, T=1, context {ctx}: wall "
+            f"{wall:.3f} ms a step (CUDA events over {steps} steps, logits "
+            f"collected each step), device "
+            f"{f'{dev:.3f} ms' if busy else 'not measured (the profiler recorded no kernel)'}"
+            f"{f', idle share {1 - dev / wall:.3f}' if busy else ''}; "
+            f"{card}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
-              n_pages=4096, max_chunk=512, reqs=None, params=None):
+              n_pages=4096, max_chunk=512, reqs=None, params=None,
+              decode_timing: bool = False):
     """Serve through DynaServe (the main path, counted) then colocation,
-    on ``params`` (random weights from ``seed`` when not given).  Returns
-    the main path's launch counts and peak allocated device bytes."""
+    on ``params`` (random weights from ``seed`` when not given), and with
+    ``decode_timing`` time decode steps eager against graphed
+    (``time_decode``).  Returns the main path's launch counts and peak
+    allocated device bytes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -1292,10 +1485,14 @@ def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
     if device == "cuda":
         gc.collect()
         torch.cuda.empty_cache()
-    outs_c, m_c, moved_c, wall_c = serve(cfg, params, reqs, "colocation",
-                                         n_slots=n_slots, n_pages=n_pages,
-                                         max_chunk=max_chunk)
+    with step_tally() as tally:
+        outs_c, m_c, moved_c, wall_c = serve(cfg, params, reqs, "colocation",
+                                             n_slots=n_slots,
+                                             n_pages=n_pages,
+                                             max_chunk=max_chunk)
     report("colocation", m_c, moved_c, wall_c, card)
+    log(f"[serve] colocation: {tally_line(tally)}")
+    check_graphed(tally, f"{cfg.name} colocation", device)
     same = sum(int(a == b) for o1, o2 in zip(outs, outs_c)
                for a, b in zip(o1, o2))
     total = sum(len(o) for o in outs)
@@ -1304,6 +1501,10 @@ def run_serve(seed: int, card: str, cfg=None, device="cuda", n_slots=8,
         f"({same / total:.3f}); first tokens agree {first}/{len(outs)} "
         f"(bf16 greedy streams diverge after a near-tie; exact equality "
         f"is asserted by the f32 CPU tests)")
+    if decode_timing and device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        time_decode(cfg, params, card)
     del params
     return launches, peak
 
@@ -1381,19 +1582,24 @@ def moe_routing(tape=None, replay=None, flips=None, dropped=None):
     tape of the same calls) a call takes the recorded experts, ranks and
     keeps instead of its own, its gate weights renormalised from its own
     probabilities, and appends to ``flips`` the count of tokens whose own
-    top-k differed.  ``dropped`` (a list of a device tensor and an int)
-    sums the dropped (token, k) slots without reading anything back, and
-    all slots; the shards of an expert-parallel step route alike, so only
-    shard 0 counts."""
+    top-k differed.  ``dropped`` (two 0-dim device tensors) sums the
+    dropped (token, k) slots and all slots in place, without reading
+    anything back; the shards of an expert-parallel step route alike, so
+    only shard 0 counts.  The sums are graph-aware: a captured step
+    records the in-place adds, so each replay of it adds again, and a
+    capture's all-inactive warm-up step is taken off (the counters are
+    restored around ``InstanceEngine._capture``)."""
+    from repro_torch.engine import runner
     from repro_torch.models import layers
     from repro_torch.models.tp import tp_rank
     route = layers.moe_route
+    capture = runner.InstanceEngine._capture
 
     def watched(p, xf, cfg, capacity_factor):
         r = route(p, xf, cfg, capacity_factor)
         if dropped is not None and tp_rank() == 0:
-            dropped[0] = dropped[0] + (~r["keep"]).sum()
-            dropped[1] += r["keep"].numel()
+            dropped[0].add_((~r["keep"]).sum())
+            dropped[1].add_(r["keep"].numel())
         if replay is not None:
             ref = replay[len(flips)]
             flips.append((r["gate_idx"] != ref["gate_idx"]).any(-1).sum())
@@ -1406,11 +1612,21 @@ def moe_routing(tape=None, replay=None, flips=None, dropped=None):
                                             "cap")})
         return r
 
+    def uncounted_capture(self, T, n_pp):
+        saved = [d.clone() for d in dropped]
+        g = capture(self, T, n_pp)
+        for d, v in zip(dropped, saved):
+            d.copy_(v)
+        return g
+
     layers.moe_route = watched
+    if dropped is not None:
+        runner.InstanceEngine._capture = uncounted_capture
     try:
         yield
     finally:
         layers.moe_route = route
+        runner.InstanceEngine._capture = capture
 
 
 # One MoE layer in f32 (TF32 off), card against CPU on the same weights:
@@ -1568,7 +1784,8 @@ def run_moe_serve(seed: int, card: str, cfg=None, device="cuda",
         raise AssertionError(f"only {free / 1e9:.2f} GB free after the "
                              f"weights: {n_pages} pages an instance")
     reqs = reqs or make_requests(seed, cfg.vocab_size)
-    dropped = [torch.zeros((), dtype=torch.long, device=device), 0]
+    dropped = [torch.zeros((), dtype=torch.long, device=device)
+               for _ in range(2)]
     width = f" ep{devices_per_instance}" if devices_per_instance > 1 else ""
     with moe_routing(dropped=dropped):
         _, launches, peak = serve_counted(
@@ -1582,8 +1799,8 @@ def run_moe_serve(seed: int, card: str, cfg=None, device="cuda",
         f"{peak / 1e9:.3f} GB")
     log(f"[moe]{width} {cfg.name} dropped (token, k) "
         f"slots over all MoE layers and steps, pads included: "
-        f"{int(dropped[0])} of {dropped[1]} "
-        f"({int(dropped[0]) / dropped[1]:.4f}; capacity factor "
+        f"{int(dropped[0])} of {int(dropped[1])} "
+        f"({int(dropped[0]) / int(dropped[1]):.4f}; capacity factor "
         f"{cfg.moe_capacity_factor})")
     return launches, cfg, params, n_pages
 
@@ -1642,6 +1859,8 @@ def run_http(seed: int, cfg, params, n_pages: int, page: int = 8):
     driver_thread = srv.driver._thread
     rng = np.random.default_rng(seed)
     t0 = time.monotonic()
+    tallied = step_tally()
+    tally = tallied.__enter__()
     try:
         for n_prompt, n_new in ((700, 12), (90, 20)):
             prompt = [int(t) for t in rng.integers(0, cfg.vocab_size,
@@ -1680,14 +1899,16 @@ def run_http(seed: int, cfg, params, n_pages: int, page: int = 8):
                                  f"completed requests")
     finally:
         srv.stop()
+        tallied.__exit__(None, None, None)
     if driver_thread.is_alive() or srv._thread is not None:
         raise AssertionError("the server did not shut down cleanly")
     log(f"[http] {cfg.name} behind the port's ServingServer: 2 "
         f"/v1/completions (12 and 20 tokens) and 1 streamed "
         f"/v1/chat/completions ({len(events) - 1} SSE events, 16 tokens) in "
         f"{time.monotonic() - t0:.2f} s; /metrics counts {int(done)} "
-        f"completed requests; KV moved {backend.kv_bytes_moved} B; clean "
-        f"shutdown")
+        f"completed requests; KV moved {backend.kv_bytes_moved} B; "
+        f"{tally_line(tally)}; clean shutdown")
+    check_graphed(tally, "http", params["embed"].device.type)
 
 
 # ---------------------------------------------------------------------------
@@ -1877,7 +2098,7 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
     kw = dict(n_slots=2, max_len=1024, max_chunk=512)
     counts = {}
     with launches_by_heads(counts):
-        one = InstanceEngine(cfg, params, **kw)
+        one = InstanceEngine(cfg, params, graphs=False, **kw)
         two = InstanceEngine(cfg, params, devices=[device] * 2, **kw)
         (l1, l2), (w1, w2), fed, (s1, s2) = greedy_pair([one, two], prompt,
                                                         steps)
@@ -1942,7 +2163,8 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
         pred = BatchCostModel(cfg, H100, tp_degree=n).mixed_batch_latency(
             0, 0, 1, ctx)
         meas = float(np.median(walls)) * 1e3
-        log(f"[tp] decode step, one request at ~{ctx} tokens, width {n}"
+        log(f"[tp] decode step (eager), one request at ~{ctx} tokens, "
+            f"width {n}"
             f"{' (two shards time-sharing the card)' if n > 1 else ''}: "
             f"median wall {meas:.3f} ms, device {dev_ms[n][0]:.3f} ms "
             f"({dev_ms[n][1]}), idle share {1 - dev_ms[n][0] / meas:.3f}; "
@@ -1961,7 +2183,7 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
         _, launches, peak = serve_counted(
             cfg, params, reqs, card, device,
             f"{cfg.name} [1, 2] dynaserve", n_slots=8, n_pages=4096,
-            max_chunk=512, devices_per_instance=[1, 2])
+            max_chunk=512, devices_per_instance=[1, 2], graphs=False)
     if not any(k[1:] == half for k in counts):
         raise AssertionError(f"the 2-wide instance launched nothing: "
                              f"{counts}")
@@ -2100,7 +2322,10 @@ def run_tp(seed: int, card: str, serve_peak=None):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[tp] phase wall {time.monotonic() - t0:.1f} s; card {card}; every "
-        f"TP/EP row is two shards time-sharing one card")
+        f"TP/EP row is two shards time-sharing one card; every step of the "
+        f"phase is eager (sharded instances run no graphs, and its "
+        f"one-device engines and sessions are built with graphs=False, so "
+        f"width 1 and width 2 compare like for like)")
     errs = {name: max(e[name] for e in kc.err.values()) for name in KERNELS}
     return launches, times, errs
 
@@ -2130,7 +2355,7 @@ def run_launch(device="cuda"):
         before = (pda.launches, cpa.launches, dict(cpa.body_launches))
         buf = io.StringIO()
         t0 = time.monotonic()
-        with redirect_stdout(buf):
+        with redirect_stdout(buf), step_tally() as tally:
             rc = launcher.main(argv)
         lines = buf.getvalue().splitlines()
         head = dict(kv.split("=") for kv in lines[1].split()[:4])
@@ -2144,7 +2369,13 @@ def run_launch(device="cuda"):
         log(f"[launch] python -m repro_torch.launch.serve {' '.join(argv)}: "
             f"{head['completed']}/{head['offered']} requests complete in "
             f"{time.monotonic() - t0:.1f} s; kernel launches {launches}, "
-            f"chunked_prefill_attention by body {bodies}")
+            f"chunked_prefill_attention by body {bodies}; "
+            f"{tally_line(tally)}")
+        check_graphed(tally, " ".join(argv), device)
+        if device == "cuda" and launches != tally["eager_launches"]:
+            raise AssertionError(f"{' '.join(argv)}: launches {launches}, "
+                                 f"the eager step's "
+                                 f"{tally['eager_launches']}")
         if device == "cuda":
             for name, n in launches.items():
                 if n <= 0:
@@ -2216,7 +2447,8 @@ def run_dense_serve(seed: int, card: str, cfg, params, reqs=None,
     outs = {}
     for policy in ("dynaserve", "colocation"):
         before = paged_counts()
-        outs[policy], m, moved, wall = serve(cfg, params, reqs, policy)
+        with step_tally() as tally:
+            outs[policy], m, moved, wall = serve(cfg, params, reqs, policy)
         n_paged = paged_counts() - before
         ttft, tbt = np.asarray(m.ttfts) * 1e3, np.asarray(m.tbts) * 1e3
         log(f"[dense] {cfg.name} {policy}: {m.completed}/{m.offered} "
@@ -2225,7 +2457,8 @@ def run_dense_serve(seed: int, card: str, cfg, params, reqs=None,
             f"{ttft.mean():.1f} p50 {np.median(ttft):.1f} max {ttft.max():.1f} "
             f"ms; TBT mean {tbt.mean():.1f} p50 {np.median(tbt):.1f} p99 "
             f"{np.percentile(tbt, 99):.1f} ms; state moved {moved} B; paged "
-            f"kernel launches {n_paged}; card {card}")
+            f"kernel launches {n_paged}; {tally_line(tally)}; card {card}")
+        check_graphed(tally, f"{cfg.name} {policy}", device)
         if m.completed != m.offered:
             raise AssertionError(f"{cfg.name} {policy}: {m.completed} of "
                                  f"{m.offered} requests")
@@ -3113,7 +3346,7 @@ def run_examples(card: str, device="cuda"):
         t0 = time.monotonic()
         pda.launches = 0
         cpa.launches = 0
-        with redirect_stdout(buf):
+        with redirect_stdout(buf), step_tally() as tally:
             out = mod.main([] if device == "cuda" else ["--device", device])
         n = {"paged_decode_attention": pda.launches,
              "chunked_prefill_attention": cpa.launches}
@@ -3121,7 +3354,8 @@ def run_examples(card: str, device="cuda"):
             if line.strip():
                 log(f"[examples] {name}: {line}")
         log(f"[examples] {name}: {time.monotonic() - t0:.1f} s, kernel "
-            f"launches {n}; {card}")
+            f"launches {n}; {tally_line(tally)}; {card}")
+        check_graphed(tally, name, device)
         for kernel, k in n.items():
             if k <= 0 and device == "cuda":
                 raise AssertionError(f"{name}: {kernel} was not launched")
@@ -3132,6 +3366,194 @@ def run_examples(card: str, device="cuda"):
                                      f"not grow turn by turn")
         launches[f"examples/{name}.py"] = n
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the compiled step (one CUDA graph per (T, n_pp)) against eager
+# ---------------------------------------------------------------------------
+#: (config, layers kept, page-pool precision or None for the dense cache,
+#: max_len): Qwen2.5-14B at full width on every pool format;
+#: RecurrentGemma-9B (its ring of 2048 and a tail block) and Mamba2-780M
+#: on the dense cache, at full width and 4 layers
+GRAPH_ENGINES = (("qwen2.5-14b", 2, "bf16", 1024),
+                 ("qwen2.5-14b", 2, "fp8", 1024),
+                 ("qwen2.5-14b", 2, "int8", 1024),
+                 ("recurrentgemma-9b", 4, None, 4096),
+                 ("mamba2-780m", 4, None, 1024))
+#: the items, each (slot, first position, tokens): prefill chunks in the
+#: T buckets 512, 128 and 32, then a mixed batch (a decode step, a
+#: 60-token chunk, a new 7-token prompt)
+GRAPH_STEPS = ([(0, 0, 300)], [(1, 0, 100)], [(2, 0, 20), (0, 300, 30)],
+               [(0, 330, 1), (1, 100, 60), (3, 0, 7)])
+GRAPH_DECODE_STEPS = 8
+
+
+def cache_bytes(eng):
+    """Every cache tensor of a one-device engine, as raw bytes."""
+    import torch
+    return {k: v.contiguous().view(torch.uint8).clone()
+            for k, v in flat(eng.cache).items()}
+
+
+def graph_pool_bytes(device="cuda"):
+    """Bytes the allocator holds in the engines' shared graph pool on
+    ``device`` (its segments in ``torch.cuda.memory_snapshot()``), or
+    None where the snapshot does not name segments' pools."""
+    import torch
+    from repro_torch.engine.runner import graph_pool
+    pid = tuple(graph_pool(torch.device(device)))
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == pid)
+
+
+def run_graphs(seed: int, card: str, device="cuda"):
+    """For each of ``GRAPH_ENGINES``: an eager engine (``graphs=False``)
+    and a graphed one on the same weights, fed the same items
+    (``GRAPH_STEPS``, then ``GRAPH_DECODE_STEPS`` decode steps of all four
+    slots).  After every step the logits must be bit-equal and every
+    cache tensor byte-equal; every capture's all-inactive warm-up must
+    leave every cache byte as it was; the launch counters after the
+    replays must equal the eager engine's; and, with every key captured,
+    ``dispatch_batch`` of a prefill, a mixed and a decode step must make
+    no synchronizing call on either engine under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Prints the captures,
+    their seconds and the graph pool's bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import BatchItem, InstanceEngine
+    from repro_torch.engine import runner
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models.model import init_params
+    t_phase = time.monotonic()
+    capture = runner.InstanceEngine._capture
+    warm_checks = [0]
+
+    sync_debug = (torch.cuda.set_sync_debug_mode if device == "cuda"
+                  else (lambda mode: None))
+
+    def checked_capture(self, T, n_pp):
+        before = cache_bytes(self)
+        g = capture(self, T, n_pp)
+        torch.cuda.synchronize()
+        after = cache_bytes(self)
+        bad = [k for k in before if not torch.equal(before[k], after[k])]
+        if bad:
+            raise AssertionError(f"the warm-up of key ({T}, {n_pp}) "
+                                 f"changed cache bytes of {bad}")
+        warm_checks[0] += 1
+        return g
+
+    runner.InstanceEngine._capture = checked_capture
+    try:
+        for name, layers, prec, max_len in GRAPH_ENGINES:
+            cfg = get_config(name).with_(n_layers=layers)
+            params = init_params(cfg, torch.Generator(device=device)
+                                 .manual_seed(seed), device=device)
+            kw = dict(n_slots=4, max_len=max_len, max_chunk=512)
+            if prec is not None:
+                kw.update(kv_mode="paged", page_size=8, kv_precision=prec)
+            else:
+                kw.update(kv_mode="dense")
+            eager = InstanceEngine(cfg, params, graphs=False, **kw)
+            graphed = InstanceEngine(cfg, params, **kw)
+            for eng in (eager, graphed):
+                for i in range(4):
+                    eng.alloc(f"r{i}")
+            toks = np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (4, 1024)).astype(np.int32)
+            pos = [0] * 4
+            launches = {"eager": {}, "graphed": {}}
+            steps = [list(st) for st in GRAPH_STEPS]
+
+            def items_of(step):
+                return [BatchItem(s, toks[s, p:p + n], p, True)
+                        for s, p, n in step]
+
+            def run(label, eng, items):
+                before = launch_counts()
+                out = eng.run_batch(items)
+                for k, n in launch_counts().items():
+                    launches[label][k] = launches[label].get(k, 0) + \
+                        n - before[k]
+                return out
+
+            n_cmp = 0
+            for step in steps:
+                for s, p, n in step:
+                    pos[s] = max(pos[s], p + n)
+            for i in range(GRAPH_DECODE_STEPS):
+                steps.append([(s, pos[s] + i, 1) for s in range(4)])
+            for k, step in enumerate(steps):
+                items = items_of(step)
+                le, lg = run("eager", eager, items), run("graphed", graphed,
+                                                         items)
+                for s in le:
+                    if not np.array_equal(le[s].view(np.uint32),
+                                          lg[s].view(np.uint32)):
+                        raise AssertionError(
+                            f"{name} {prec or 'dense'} step {k} slot {s}: "
+                            f"graphed logits differ from eager by "
+                            f"{np.abs(le[s] - lg[s]).max():.3e}")
+                ce, cg = cache_bytes(eager), cache_bytes(graphed)
+                bad = [key for key in ce if not torch.equal(ce[key],
+                                                            cg[key])]
+                if bad:
+                    raise AssertionError(f"{name} {prec or 'dense'} step "
+                                         f"{k}: cache bytes differ in {bad}")
+                n_cmp += 1
+            if launches["eager"] != launches["graphed"]:
+                raise AssertionError(f"{name}: launches eager "
+                                     f"{launches['eager']}, graphed "
+                                     f"{launches['graphed']}")
+            # every key captured: the same kinds of step again, now
+            # dispatched under the sync debug mode
+            nxt = [p + GRAPH_DECODE_STEPS for p in pos]
+
+            def take(slot, n):
+                nxt[slot] += n
+                return (slot, nxt[slot] - n, n)
+
+            for kind in ("prefill", "mixed", "decode"):
+                pair = []
+                for _ in range(2):
+                    pair.append([take(2, 16)] if kind == "prefill" else
+                                [take(2, 16), take(0, 1)] if kind == "mixed"
+                                else [take(s, 1) for s in range(4)])
+                for eng in (eager, graphed):
+                    eng.run_batch(items_of(pair[0]))    # captures if new
+                    sync_debug("error")
+                    try:
+                        handle = eng.dispatch_batch(items_of(pair[1]))
+                    finally:
+                        sync_debug(0)
+                    eng.collect_batch(handle)
+            pool = graph_pool_bytes(device) if device == "cuda" else None
+            log(f"[graphs] {name} ({layers} layers, full width) "
+                f"{'pool ' + prec if prec else 'dense cache'}: {n_cmp} "
+                f"steps ({', '.join(str(len(st)) + ' items' for st in GRAPH_STEPS)}, "
+                f"then {GRAPH_DECODE_STEPS} decode steps of 4 slots) graphed "
+                f"vs eager: logits bit-equal, every cache tensor "
+                f"byte-equal after every step; launches equal "
+                f"{ {k: n for k, n in launches['graphed'].items() if n} or 'none (dense)'}; "
+                f"set_sync_debug_mode('error') raised nothing in "
+                f"dispatch_batch of a prefill, a mixed and a decode step on "
+                f"either engine; {graphed.captures} captures in "
+                f"{graphed.capture_seconds:.2f} s, the shared pool "
+                f"{'not measured' if pool is None else f'{pool / 1e9:.3f} GB'}; "
+                f"{card}")
+            del eager, graphed, params
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        runner.InstanceEngine._capture = capture
+    log(f"[graphs] {warm_checks[0]} captures' all-inactive warm-ups left "
+        f"every cache byte as it was; phase wall "
+        f"{time.monotonic() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3218,7 +3640,7 @@ def moe_ranges():
 
 def run_profile(seed: int, card: str, cfg=None, device="cuda",
                 n_slots: int = 8, ctx: int = 1024, chunk: int = 512,
-                steps: int = 4):
+                steps: int = 4, graphs: bool = False):
     """One engine (Qwen2.5-14B unless ``cfg`` names another config) at the
     serve phase's sizes: ``steps`` prefill steps (a ``chunk``-token chunk
     on every slot at position ``ctx``) and ``steps`` decode steps (every
@@ -3232,7 +3654,10 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
     every kernel of the plain dense attention forms the ``attention``
     class and every kernel of the SSD scan, the RG-LRU recurrence and the
     causal convolution the ``scan`` class (their products included; the
-    RG-LRU's one-token closed form stays in ``other``)."""
+    RG-LRU's one-token closed form stays in ``other``).  With ``graphs``
+    the engine replays its captured steps: the kernels run under no
+    Python range, so the ``moe``, ``attention`` and ``scan`` classes are
+    not split out of ``matmul`` and ``other`` there."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3244,7 +3669,8 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
                          device=device)
     eng = InstanceEngine(cfg, params, n_slots=n_slots, page_size=8,
                          n_pages=4096, max_chunk=chunk,
-                         max_len=ctx + 2 * chunk)
+                         max_len=ctx + 2 * chunk, graphs=graphs)
+    mode = "graphed" if eng.graphs else "eager"
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (n_slots, ctx + chunk)).astype(np.int32)
     slots = [eng.alloc(f"r{i}") for i in range(n_slots)]
@@ -3259,10 +3685,19 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
 
     for lo in range(0, ctx, chunk):          # fill the context
         prefill(lo)
-    decode(ctx + chunk)                      # warm both step shapes
+    prefill(ctx)                             # warm both step shapes (a
+    decode(ctx + chunk)                      # graphed engine captures)
     for label, fn in (("prefill", lambda i: prefill(ctx)),
                       ("decode", lambda i: decode(ctx + chunk + 1 + i))):
         sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        # wall time a step without the profiler, whose host-side cost
+        # inflates a short (graphed) step's wall
+        sync()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn(i)
+        sync()
+        bare_us = (time.perf_counter() - t0) * 1e6
         for _ in range(PROFILE_TRIES):
             sync()
             with moe_ranges(), dense_ranges(), \
@@ -3287,7 +3722,7 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
                 dev[cls] = dev.get(cls, 0.0) + ev.time_range.elapsed_us()
         busy = sum(dev.values())
         experts = ""
-        if cfg.moe_experts and device == "cuda":
+        if cfg.moe_experts and device == "cuda" and not eng.graphs:
             inside = _range_kernels(prof, "moe")
             mm = sum(k.duration for k in inside
                      if _kernel_class(k.name) == "matmul")
@@ -3299,20 +3734,23 @@ def run_profile(seed: int, card: str, cfg=None, device="cuda",
             dev["moe"] = moe
             experts = (f"; of matmul, the expert products "
                        f"{mm / steps / 1e3:.3f}")
-        if not eng.paged and device == "cuda":
+        if not eng.paged and device == "cuda" and not eng.graphs:
             for cls in ("attention", "scan"):
                 for k in _range_kernels(prof, cls):
                     dev[_kernel_class(k.name)] -= k.duration
                     dev[cls] = dev.get(cls, 0.0) + k.duration
         parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in
                           sorted(dev.items(), key=lambda kv: -kv[1]))
-        log(f"[profile] {cfg.name} {label} step (B={n_slots}, "
+        log(f"[profile] {cfg.name} {label} step, {mode} (B={n_slots}, "
             f"{'T=' + str(chunk) if label == 'prefill' else 'T=1'}, "
-            f"context {ctx}): wall {wall_us / steps / 1e3:.3f} ms; device "
-            f"ms by kernel class: {parts or 'none recorded'}{experts}; idle "
-            f"share {1 - busy / wall_us:.3f}; card {card}")
+            f"context {ctx}): wall {bare_us / steps / 1e3:.3f} ms (under the "
+            f"profiler {wall_us / steps / 1e3:.3f}); device ms by kernel "
+            f"class: {parts or 'none recorded'}{experts}; idle share "
+            f"{1 - busy / bare_us:.3f} of the wall without the profiler "
+            f"({1 - busy / wall_us:.3f} under it); card {card}")
         host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-        log(f"[profile] {cfg.name} {label} step, host ops by self CPU time "
+        log(f"[profile] {cfg.name} {label} step, {mode}, host ops by self "
+            f"CPU time "
             f"a step: " + ", ".join(
                 f"{e.key} {e.self_cpu_time_total / steps / 1e3:.2f} ms "
                 f"({e.count // steps} calls)" for e in host[:8]))
@@ -3376,14 +3814,18 @@ def main(argv=None) -> int:
                 args.seed, label, H, KV, quant=False, hd=hd, dtype=dt,
                 decode=False)["chunked_prefill_attention"]
             torch.cuda.empty_cache()
-        time_hd32_bodies(args.seed)
+        prefill_rows["hd 32, scaled bf16 pool (mma_sync)"] = \
+            time_hd32_bodies(args.seed)
         torch.cuda.empty_cache()
     if "model" in phases:
         run_model_check(args.seed)
+    if "graphs" in phases:
+        run_graphs(args.seed, card)
     launches = {}             # serving path -> kernel -> launches
     serve_peak = None
     if "serve" in phases:
-        launches["qwen2.5-14b"], serve_peak = run_serve(args.seed, card)
+        launches["qwen2.5-14b"], serve_peak = run_serve(args.seed, card,
+                                                        decode_timing=True)
         gc.collect()     # the sessions' reference cycles hold the weights
         torch.cuda.empty_cache()
     nemotron_times = {}
@@ -3438,9 +3880,11 @@ def main(argv=None) -> int:
     if "profile" in phases:
         from repro_torch.configs import get_config
         for name in ("qwen2.5-14b", MOE_PATH) + DENSE_PATHS:
-            run_profile(args.seed, card, cfg=get_config(name))
-            gc.collect()
-            torch.cuda.empty_cache()
+            for graphs in (False, True):
+                run_profile(args.seed, card, cfg=get_config(name),
+                            graphs=graphs)
+                gc.collect()
+                torch.cuda.empty_cache()
 
     # times at the Qwen2.5-14B shapes (the first path; PERF.md's earlier
     # rows), launches of every serving path run, max error over both

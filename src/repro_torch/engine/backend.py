@@ -155,8 +155,9 @@ class EngineBackend(Backend):
                  max_chunk: int = DEFAULT_MAX_CHUNK,
                  prefix_cache: bool = False,
                  kv_precision="bf16",
-                 devices_per_instance=1):
+                 devices_per_instance=1, graphs: bool = True):
         self.cfg = cfg
+        self.graphs = graphs     # the engines' compiled step (on a card)
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
@@ -266,7 +267,7 @@ class EngineBackend(Backend):
                 page_size=self.page_size or 8, n_pages=self.n_pages,
                 max_chunk=self.max_chunk, prefix_cache=self.prefix_cache,
                 kv_precision=self._precision_for(iid).name,
-                devices=self._instance_devices(iid))
+                devices=self._instance_devices(iid), graphs=self.graphs)
             # the engine owns the auto-mode rule; the backend's page
             # bookkeeping (register/admission/total_pages) must agree
             assert eng.paged == self.paged, \

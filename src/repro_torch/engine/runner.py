@@ -25,11 +25,28 @@ allocator, one set of block tables and one prefix cache.
 format and ``import_state`` scatters it, so handoffs cross widths.
 Repeated devices (``["cpu", "cpu"]``, two shards of one card) behave as
 the reference's virtual devices do: the shards time-share the device.
+
+A one-device engine on a card runs its step as the reference's
+``jax.jit`` does: compiled once per ``(T, n_pp)`` bucket and dispatched
+without waiting.  At a key's first use the engine runs one eager step
+with every slot inactive (every write lands in the caches' scratch rows,
+so no cache byte changes; it builds the kernels and loads what they need
+outside the capture), then captures the step into a CUDA graph in one
+memory pool a device, shared by every engine on it; each later step of
+that key copies its inputs into the graph's static buffer and replays
+it.  ``graphs=False`` runs the eager step instead, as a sharded engine
+and a CPU engine always do.  ``dispatch_batch`` waits on the device in
+neither mode: inputs go through pinned host buffers with non-blocking
+copies, and the write plans have static shapes.  A graph holds the
+addresses of the params and caches it read, which the engine only ever
+writes in place; a caller that rebinds one calls ``drop_graphs``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
+import time
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -42,7 +59,9 @@ from repro_torch.engine.block_allocator import (
     BlockAllocator, CapacityError, OutOfPages, pages_for,
 )
 from repro_torch.engine.prefix_cache import PrefixCache
-from repro_torch.kernels.ops import quantize_kv
+from repro_torch.kernels.ops import (
+    add_launch_counts, launch_counts, quantize_kv,
+)
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
@@ -89,10 +108,12 @@ class BatchItem:
 
 @dataclasses.dataclass(eq=False)
 class StepHandle:
-    """An in-flight forward step: its kernels are queued on the device
-    (torch launches asynchronously) but its logits have not been copied
-    to the host.  ``ready()`` probes completion without blocking through
-    a CUDA event recorded after the step; a CPU step is always ready."""
+    """An in-flight forward step: its kernels (or its graph's replay) are
+    queued on the device but its logits have not been copied to the
+    host.  ``logits`` is the step's own tensor (a graphed step's is a
+    clone of the graph's static output), so two handles never alias.
+    ``ready()`` probes completion without blocking through a CUDA event
+    recorded after the step; a CPU step is always ready."""
     items: Sequence[BatchItem]
     logits: torch.Tensor
     event: Optional[object] = None
@@ -111,6 +132,52 @@ def _on(device: torch.device):
     kernels launch on its current stream); nothing for the CPU."""
     return (torch.cuda.device(device) if device.type == "cuda"
             else contextlib.nullcontext())
+
+
+@dataclasses.dataclass(eq=False)
+class _Graph:
+    """One captured step: the CUDA graph of the forward at one (T, n_pp)
+    key, its static packed inputs and logits (both allocated outside the
+    graph pool), and the kernel launches its capture counted, which every
+    replay adds to the wrappers' counters."""
+    graph: object
+    inputs: torch.Tensor
+    logits: torch.Tensor
+    launches: Dict[str, int]
+
+
+_GRAPH_POOLS: Dict[int, object] = {}     # device index -> memory pool
+_CAPTURE_STREAMS: Dict[int, object] = {}
+_capturing = threading.Lock()            # one capture at a time
+
+
+def graph_pool(device: torch.device):
+    """The memory pool that every engine's graphs on ``device`` share.
+    Graphs that share it never run at once (one stream), and nothing a
+    graph allocates outlives its capture (its inputs and logits live
+    outside the pool), so every capture may reuse all of the pool and it
+    holds about one step's temporaries, however many keys there are."""
+    index = torch.device(device).index or 0
+    if index not in _GRAPH_POOLS:
+        _GRAPH_POOLS[index] = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOLS[index]
+
+
+def _capture_stream(device: torch.device):
+    index = device.index or 0
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=device)
+    return _CAPTURE_STREAMS[index]
+
+
+def _unpack(buf: torch.Tensor, B: int, T: int, n_pp: int):
+    """The step's inputs out of one packed int32 buffer: tokens (B, T),
+    pos_offset, n_valid and active (B,) each, and the block tables
+    (B, n_pp) of a paged step (``InstanceEngine._pack`` lays it out)."""
+    tokens = buf[:B * T].view(B, T)
+    pos_offset, n_valid, active = buf[B * T:B * (T + 3)].view(3, B)
+    tables = buf[B * (T + 3):].view(B, n_pp) if n_pp else None
+    return tokens, pos_offset, n_valid, active != 0, tables
 
 
 class InstanceEngine:
@@ -145,7 +212,7 @@ class InstanceEngine:
                  max_chunk: int = DEFAULT_MAX_CHUNK,
                  prefix_cache: bool = False,
                  kv_precision: str = "bf16",
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, graphs: bool = True):
         if kv_mode not in ("auto", "paged", "dense"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         if kv_mode == "paged" and not supports_paged_kv(cfg):
@@ -213,6 +280,12 @@ class InstanceEngine:
         self._group: Optional[ShardGroup] = None
         if self.tp > 1:
             self._shard_instance()
+        # the compiled step: one CUDA graph per (T, n_pp) key, on a
+        # one-device engine on a card
+        self.graphs = graphs and self.tp == 1 and self.device.type == "cuda"
+        self._graphs: Dict[Tuple[int, int], _Graph] = {}
+        self.captures = 0
+        self.capture_seconds = 0.0
         self.free_slots = list(range(n_slots))
         self.slot_owner: Dict[int, str] = {}
         # counters for tests/benchmarks
@@ -274,9 +347,17 @@ class InstanceEngine:
 
     def close(self) -> None:
         """Stop a sharded instance's shard threads (a one-device instance
-        has none); also done when the engine is collected."""
+        has none; also done when the engine is collected) and drop the
+        engine's graphs."""
+        self.drop_graphs()
         if self._group is not None:
             self._closer()
+
+    def drop_graphs(self) -> None:
+        """Forget every captured step, so the next step of each key
+        captures anew: a caller that rebinds a parameter or cache tensor
+        calls this (in-place writes need nothing)."""
+        self._graphs.clear()
 
     # ---------------- slot management ----------------
     def alloc(self, req_id: str) -> int:
@@ -403,8 +484,58 @@ class InstanceEngine:
         for items with want_logits."""
         return self.collect_batch(self.dispatch_batch(items))
 
-    def _tensor(self, a: np.ndarray, device=None) -> torch.Tensor:
-        return torch.tensor(a, device=device or self.device)
+    def _stage(self, a: np.ndarray, devices) -> Dict[torch.device,
+                                                     torch.Tensor]:
+        """``a`` as a tensor on each of ``devices`` without waiting on a
+        card: copied from a fresh pinned host buffer with
+        ``non_blocking=True`` on the current stream.  The host allocator
+        keeps that buffer until the copy has run, so no later step can
+        refill it first."""
+        host = torch.from_numpy(np.ascontiguousarray(a))
+        pinned = None
+        out = {}
+        for d in devices:
+            if d.type != "cuda":
+                out[d] = host
+                continue
+            if pinned is None:
+                pinned = host.pin_memory()
+            out[d] = pinned.to(d, non_blocking=True)
+        return out
+
+    def _pack(self, items: Sequence[BatchItem], T: int,
+              n_pp: int) -> np.ndarray:
+        """A step's inputs in one int32 buffer (``_unpack`` reads it):
+        padding B to ``n_slots`` and T to its bucket, and the block tables
+        padded to ``n_pp`` pages."""
+        B = self.n_slots
+        buf = np.zeros(B * (T + 3 + n_pp), np.int32)
+        tokens = buf[:B * T].reshape(B, T)
+        pos_off, n_valid, active = buf[B * T:B * (T + 3)].reshape(3, B)
+        for it in items:
+            t = len(it.tokens)
+            tokens[it.slot, :t] = it.tokens
+            pos_off[it.slot] = it.pos_offset
+            n_valid[it.slot] = t
+            active[it.slot] = 1
+        if n_pp:
+            buf[B * (T + 3):] = self.allocator.table_array(n_pp).reshape(-1)
+        return buf
+
+    def _forward(self, rank: int, buf: torch.Tensor, T: int,
+                 n_pp: int) -> torch.Tensor:
+        """Shard ``rank``'s step on its packed inputs: (B, vocab) f32
+        last-token logits; the cache is written in place."""
+        tokens, pos_off, n_valid, active, tables = _unpack(
+            buf, self.n_slots, T, n_pp)
+        kw = ({"block_tables": tables, "page_size": self.page_size}
+              if self.paged else {"window_override": self.window_override})
+        with torch.no_grad(), _on(self.shard_devices[rank]):
+            logits, _, _ = forward(
+                self.shard_params[rank], self.cfg, tokens,
+                cache=self.caches[rank], pos_offset=pos_off, active=active,
+                n_valid=n_valid, last_only=True, **kw)
+        return logits[:, 0]
 
     def dispatch_batch(self, items: Sequence[BatchItem]) \
             -> Optional[StepHandle]:
@@ -412,27 +543,17 @@ class InstanceEngine:
 
         All host-side work happens here — padding B to ``n_slots``, T to
         the bucket ladder and the block tables to the page ladder, block
-        table growth, the forward call (on every shard of a sharded
+        table growth, staging the inputs, and the step: a replay of the
+        key's graph, or the eager forward (on every shard of a sharded
         instance; this returns once each shard has enqueued its step) —
         and the kernels run on while the caller schedules the next batch
-        and pumps KV streams.  Returns ``None`` for an empty batch."""
+        and pumps KV streams.  A key's first use captures its graph,
+        which waits on the device once.  Returns ``None`` for an empty
+        batch."""
         if not items:
             return None
         T = bucket_of(max(len(it.tokens) for it in items), self.buckets)
-        B = self.n_slots
-        tokens = np.zeros((B, T), np.int32)
-        pos_off = np.zeros((B,), np.int32)
-        n_valid = np.zeros((B,), np.int32)
-        active = np.zeros((B,), bool)
-        for it in items:
-            t = len(it.tokens)
-            tokens[it.slot, :t] = it.tokens
-            pos_off[it.slot] = it.pos_offset
-            n_valid[it.slot] = t
-            active[it.slot] = True
-        inputs = {"tokens": tokens, "pos_offset": pos_off,
-                  "active": active, "n_valid": n_valid}
-        kw = {"window_override": self.window_override}
+        n_pp = 0
         if self.paged:
             # grow block tables to cover every item's span before the
             # write; OutOfPages here means the scheduler overcommitted.
@@ -446,32 +567,79 @@ class InstanceEngine:
                 self._apply_forks(forks)
             n_pp = bucket_of(max(1, self.allocator.max_table_len),
                              self.page_buckets)
-            inputs["block_tables"] = self.allocator.table_array(n_pp)
-            kw = {"page_size": self.page_size}
-        on_dev = {d: {k: self._tensor(a, d) for k, a in inputs.items()}
-                  for d in dict.fromkeys(self.shard_devices)}
+        packed = self._pack(items, T, n_pp)
+        if self.graphs:
+            logits = self._replay(T, n_pp, packed)
+        else:
+            bufs = self._stage(packed, dict.fromkeys(self.shard_devices))
 
-        def step(rank):
-            # on the caller's thread for one device, else on shard rank's
-            # thread, where autograd mode and the current device are its own
-            dev = self.shard_devices[rank]
-            t = on_dev[dev]
-            with torch.no_grad(), _on(dev):
-                logits, _, _ = forward(
-                    self.shard_params[rank], self.cfg, t["tokens"],
-                    cache=self.caches[rank], pos_offset=t["pos_offset"],
-                    active=t["active"], n_valid=t["n_valid"],
-                    block_tables=t.get("block_tables"), last_only=True, **kw)
-            return logits
+            def step(rank):
+                # on the caller's thread for one device, else on shard
+                # rank's thread, where autograd mode and the current
+                # device are its own
+                return self._forward(rank, bufs[self.shard_devices[rank]],
+                                     T, n_pp)
 
-        logits = step(0) if self._group is None else self._group.run(step)[0]
+            logits = (step(0) if self._group is None
+                      else self._group.run(step)[0])
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         self.iterations += 1
         self.tokens_processed += int(sum(len(it.tokens) for it in items))
-        return StepHandle(items=items, logits=logits[:, 0], event=event)
+        return StepHandle(items=items, logits=logits, event=event)
+
+    def _replay(self, T: int, n_pp: int, packed: np.ndarray) -> torch.Tensor:
+        """Run the key's graph on ``packed`` (capturing it at first use):
+        copy the inputs into its static buffer, replay, and clone the
+        logits out, all on the current stream."""
+        g = self._graphs.get((T, n_pp)) or self._capture(T, n_pp)
+        pinned = torch.from_numpy(packed).pin_memory()
+        with _on(self.device):
+            g.inputs.copy_(pinned, non_blocking=True)
+            g.graph.replay()
+            logits = g.logits.clone()
+        add_launch_counts(g.launches)
+        return logits
+
+    def _capture(self, T: int, n_pp: int) -> _Graph:
+        """Capture the step of key (T, n_pp) into a CUDA graph, as
+        ``jax.jit`` compiles at first use.  One eager step first, on the
+        static inputs with every slot inactive, on the capture stream:
+        it writes only the caches' scratch rows and keeps the recurrent
+        states, builds the kernels, loads their modules and sets up the
+        stream's library state outside the capture.  Then the capture, in
+        ``thread_local`` mode (other threads may use the card meanwhile),
+        into the device's shared pool.  The launches of both are taken
+        off the wrappers' counters; the capture's are added back at every
+        replay.  A failed capture raises: there is no eager fallback."""
+        dev = self.device
+        t0 = time.perf_counter()
+        with _capturing, _on(dev):
+            before = launch_counts()
+            inputs = torch.zeros(self.n_slots * (T + 3 + n_pp),
+                                 dtype=torch.int32, device=dev)
+            stream = _capture_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                shape = self._forward(0, inputs, T, n_pp).shape
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            warm = launch_counts()
+            logits = torch.empty(shape, dtype=torch.float32, device=dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=graph_pool(dev), stream=stream,
+                                  capture_error_mode="thread_local"):
+                logits.copy_(self._forward(0, inputs, T, n_pp))
+            after = launch_counts()
+            add_launch_counts({k: before[k] - n for k, n in after.items()})
+            torch.cuda.empty_cache()        # the warm-up's cached blocks
+        g = _Graph(graph, inputs, logits,
+                   {k: n - warm[k] for k, n in after.items()})
+        self._graphs[(T, n_pp)] = g
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return g
 
     def collect_batch(self, handle: Optional[StepHandle]) \
             -> Dict[int, np.ndarray]:
@@ -487,11 +655,13 @@ class InstanceEngine:
         """Copy KV contents of copy-on-write-forked pages (old -> new)
         in place, one indexed copy per pool tensor, so the forking slot
         may write its private copy without touching the shared
-        original."""
-        old = np.asarray([o for o, _ in forks], np.int64)
-        new = np.asarray([n for _, n in forks], np.int64)
+        original.  The page ids are staged like a step's inputs."""
+        n = len(forks)
+        ids = self._stage(np.asarray([o for o, _ in forks]
+                                     + [w for _, w in forks], np.int64),
+                          dict.fromkeys(self.shard_devices))
         for cache, dev in zip(self.caches, self.shard_devices):
-            old_ids, new_ids = self._tensor(old, dev), self._tensor(new, dev)
+            old_ids, new_ids = ids[dev][:n], ids[dev][n:]
             for blk in cache["blocks"]:
                 for t in blk.values():   # k/v pages + dequant scales
                     raw = as_indexable(t)
@@ -634,8 +804,8 @@ class InstanceEngine:
         per_piece = pages_for(chunk, page) if chunk else max(1, n_need)
         for p0 in range(start // page, max(1, n_need), per_piece):
             p1 = min(p0 + per_piece, n_need)
-            ids = {d: self._tensor(np.asarray(table[p0:p1], np.int64), d)
-                   for d in dict.fromkeys(self.shard_devices)}
+            ids = self._stage(np.asarray(table[p0:p1], np.int64),
+                              dict.fromkeys(self.shard_devices))
             piece = {"span": (p0 * page, min(p1 * page, upto)),
                      "page_size": page, "pages": [],
                      "precision": self.kv_precision.name}
@@ -773,9 +943,8 @@ class InstanceEngine:
                     parts[i][key].append(to_torch(a, self.device))
         if not all_ids:
             return
-        ids = np.concatenate(all_ids)
-        ids = {d: self._tensor(ids, d)
-               for d in dict.fromkeys(self.shard_devices)}
+        ids = self._stage(np.concatenate(all_ids),
+                          dict.fromkeys(self.shard_devices))
         for i, part in enumerate(parts):
             for key in keys:
                 src = torch.cat([as_indexable(a) for a in part[key]], dim=1)

@@ -130,3 +130,26 @@ def paged_prefill_attention_op(q, k_pages, v_pages, block_tables, offsets,
     ks = None if k_scales is None else gather_scales(k_scales, block_tables)
     vs = None if v_scales is None else gather_scales(v_scales, block_tables)
     return chunked_prefill_attention_op(q, k, v, offsets, ks, vs)
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' launch counters: each kernel's, and the
+    prefill kernel's by body (``chunked_prefill_attention/<body>``)."""
+    out = {"paged_decode_attention": _pda.launches,
+           "chunked_prefill_attention": _cpa.launches}
+    out.update({f"chunked_prefill_attention/{body}": n
+                for body, n in _cpa.body_launches.items()})
+    return out
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (keyed as ``launch_counts``) to the wrappers'
+    counters: the launches of a replayed CUDA graph, which run no
+    wrapper, or the removal of a capture's."""
+    with _pda._counting:
+        _pda.launches += delta.get("paged_decode_attention", 0)
+    with _cpa._counting:
+        _cpa.launches += delta.get("chunked_prefill_attention", 0)
+        for body in _cpa.BODIES:
+            _cpa.body_launches[body] += delta.get(
+                f"chunked_prefill_attention/{body}", 0)

@@ -75,7 +75,8 @@ from repro_torch.launch.specs import (
     _names_of, batch_shardings, cache_shardings, cache_spec,
     effective_window, input_specs, param_shardings,
 )
-from repro_torch.models.model import forward
+from repro_torch.models.model import ROW_DIMS, forward
+from repro_torch.models.model import cache_leaf as make_cache_leaf
 from repro_torch.models.tp import RecordingGroup, tp_axis
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.train import make_train_step
@@ -866,8 +867,20 @@ def _device_inputs(step: Step, cfg, shape, device, seed: int):
     def cache_leaf(names, x):
         if names[-1] == "pos":
             ar = torch.arange(x.shape[-1], device=device, dtype=x.dtype)
-            return ar.expand(x.shape).contiguous()
-        return _realize(x, device, gen)
+            real = ar.expand(x.shape)
+        else:
+            real = _realize(x, device, gen)
+        if names[-1] not in ROW_DIMS:
+            return real
+        # a written leaf keeps the write plan's scratch row, as the
+        # engine's caches do
+        if names[0] == "tail":             # no group axis
+            leaf = make_cache_leaf((1, *x.shape), x.dtype, device,
+                                   row_dims=ROW_DIMS[names[-1]])[0]
+        else:
+            leaf = make_cache_leaf(tuple(x.shape), x.dtype, device,
+                                   row_dims=ROW_DIMS[names[-1]])
+        return leaf.copy_(real)
     cache = tree_unflatten(cache, [cache_leaf(n, x)
                                    for n, x in _names_of(cache)])
     real_rest = []

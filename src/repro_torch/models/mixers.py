@@ -160,7 +160,9 @@ def _flash_gqa(cfg: ModelConfig, q, k, v, qpos, kpos, window: int = 0,
     qpk = H // KV
     block = min(block, S)
     nb = -(-S // block)
-    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=q.dtype, device=q.device)
+    # a CPU scalar in q's dtype: a CUDA op takes it by value, so nothing
+    # is copied from the host inside a step
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=q.dtype)
     qg = (q * scale).reshape(B, Tq, KV, qpk, hd).float()
     f32, dev = torch.float32, q.device
     m = torch.full((B, KV, qpk, Tq), NEG_INF, dtype=f32, device=dev)
@@ -262,51 +264,56 @@ def _flash_decode_seqsharded(cfg: ModelConfig, q, k, v, qpos, kpos,
     return out.to(q.dtype)
 
 
-def paged_write_plan(batch_pos, block_tables, page_size: int,
+def paged_write_plan(batch_pos, block_tables, page_size: int, n_pages: int,
                      active=None, token_mask=None) \
-        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Where the chunk's K/V rows go: ``(rows, phys, within)`` with
-    ``rows`` the flat (b*T + t) indices of the tokens that are written,
-    and ``phys``/``within`` their physical page and offset.
+        -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the chunk's K/V rows go: ``(phys, within)``, the physical
+    page and offset of every flat (b*T + t) token, B*T of each whatever
+    the masks are, so nothing is read back from the device.
 
-    Pad tokens (``token_mask`` False) and inactive slots are *left out*:
-    the reference drops their writes by aiming them at the nonexistent
-    page ``n_pages`` with ``mode="drop"``, and ``index_put_`` has no drop
-    mode.  They must never land on page 0, a real and possibly shared
-    page.  The plan is the same for every layer, so ``forward`` builds it
-    once (one host sync per step)."""
-    B, T = batch_pos.shape
+    Pad tokens (``token_mask`` False) and inactive slots write nothing:
+    their page is ``n_pages``, which the write takes to the pool's scratch
+    page (``model.cache_leaf`` allocates it after the pool's pages), as
+    the reference aims them at the nonexistent page ``n_pages`` with
+    ``mode="drop"``.  They must
+    never land on page 0, a real and possibly shared page.  The plan is
+    the same for every layer, so ``forward`` builds it once."""
     n_pp = block_tables.shape[1]
     logical = torch.div(batch_pos, page_size, rounding_mode="floor")
     within = batch_pos - logical * page_size
     phys = torch.gather(block_tables.long(), 1,
                         logical.clamp(0, n_pp - 1))
-    wmask = _write_mask(B, T, batch_pos.device, active, token_mask)
-    rows = torch.nonzero(wmask.reshape(-1)).squeeze(1)
-    return rows, phys.reshape(-1)[rows], within.reshape(-1)[rows]
+    wmask = _write_mask(*batch_pos.shape, batch_pos.device, active,
+                        token_mask)
+    phys = torch.where(wmask, phys, n_pages)
+    return phys.reshape(-1), within.reshape(-1)
 
 
 def dense_write_plan(batch_pos, S_buf: int, ring: int = 0, active=None,
-                     token_mask=None, base: int = 0) \
-        -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     token_mask=None, base: int = 0):
     """Where the chunk's K/V rows go in a dense slot cache of ``S_buf``
-    slots: ``(b, t, slot)`` of the tokens that are written, with
-    ``slot = pos % ring`` for a ring buffer (``ring`` = its window) and
-    ``pos`` otherwise, less ``base`` (the first slot a shard of a
+    slots a row: the flat destination ``b * S_buf + slot`` of every flat
+    (b*T + t) token, B*T of them whatever the masks are, with ``slot =
+    pos % ring`` for a ring buffer (``ring`` = its window) and ``pos``
+    otherwise, less ``base`` (the first slot a shard of a
     sequence-sharded cache holds).
 
     The reference scatters with ``mode="drop"``: masked tokens (pads,
-    inactive slots) and positions outside the buffer write nothing, and
-    they are left out here.  A chunk longer than the ring maps positions
-    ``p`` and ``p + ring`` to one slot; XLA applies such duplicate updates
-    in order, so the last one wins, while ``index_put_`` leaves the winner
-    open.  So only the last valid writer of each (row, slot) is kept,
-    found by a max-reduction, which no write order can change.
+    inactive slots) and positions outside the buffer write nothing.
+    Here they aim at ``B * S_buf``, which the write takes to the scratch
+    row that ``model.cache_leaf`` allocates after the cache's rows.  A chunk
+    longer than the ring maps positions ``p`` and ``p + ring`` to one
+    slot; XLA applies such duplicate updates in order, so the last one
+    wins, while ``index_put_`` leaves the winner open.  So only the last
+    valid writer of each (row, slot) keeps its slot, found by a
+    max-reduction, which no write order can change; the others go to the
+    scratch row too.
 
     A ``meta`` chunk (the dryrun's) holds no positions to test: with no
     mask it is taken as whole and inside the buffer, as the dryrun's
     chunks are (a full prompt from 0, or one token a slot), and its plan
-    is built without reading a position (``_whole_chunk_plan``)."""
+    is ``(b, t, slot)`` of the tokens written, built without reading a
+    position (``_whole_chunk_plan``)."""
     if active is None and token_mask is None \
             and batch_pos.device.type == "meta":
         return _whole_chunk_plan(batch_pos, ring, base)
@@ -320,17 +327,17 @@ def dense_write_plan(batch_pos, S_buf: int, ring: int = 0, active=None,
     last = torch.full((B, S_buf + 1), -1, dtype=torch.long, device=dev)
     last.scatter_reduce_(1, target, torch.where(wmask, t, -1), "amax")
     keep = wmask & (last.gather(1, target) == t)
-    b, tt = torch.nonzero(keep, as_tuple=True)
-    return b, tt, slots[b, tt]
+    rows = torch.arange(B, device=dev)[:, None] * S_buf + slots
+    return torch.where(keep, rows, B * S_buf).reshape(-1)
 
 
 def _whole_chunk_plan(batch_pos, ring: int = 0, base: int = 0) \
         -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``dense_write_plan`` of a chunk whose every token is written and
-    inside the buffer, with no data read: every (b, t) in row-major order,
-    or for a chunk longer than the ring each row's last ``ring`` tokens
-    (a row's positions are consecutive, so those are each slot's last
-    writer)."""
+    """The written ``(b, t, slot)`` of a chunk whose every token is
+    written and inside the buffer, with no data read: every (b, t) in
+    row-major order, or for a chunk longer than the ring each row's last
+    ``ring`` tokens (a row's positions are consecutive, so those are each
+    slot's last writer)."""
     B, T = batch_pos.shape
     dev = batch_pos.device
     keep = min(T, ring) if ring else T
@@ -338,6 +345,28 @@ def _whole_chunk_plan(batch_pos, ring: int = 0, base: int = 0) \
     t = torch.arange(T - keep, T, device=dev).repeat(B)
     pos = batch_pos[b, t]
     return b, t, (pos % ring if ring else pos) - base
+
+
+def _scratch_rows(t, row_dims: int, index):
+    """One layer's cache leaf ``t`` (rows..., rest...) and a write plan's
+    ``index`` of its flattened rows, where ``n_rows`` marks a row that
+    writes nothing, as (the leaf's whole storage as a (N + 1, rest...)
+    tensor of rows, the plan's index into it): ``t``'s rows at their
+    offset, the others at N, the scratch row ``model.cache_leaf``
+    allocated after every group's rows.  Raises for a leaf built without
+    one (a row past its end may be another layer's data)."""
+    n, rest = math.prod(t.shape[:row_dims]), t.shape[row_dims:]
+    per_row = math.prod(rest)
+    base = t if t._base is None else t._base
+    off = t.storage_offset() - base.storage_offset()
+    if not (t.is_contiguous() and base.is_contiguous()
+            and tuple(base.shape[1:]) == tuple(rest) and off % per_row == 0
+            and off // per_row + n < base.shape[0]):
+        raise ValueError(f"a cache leaf of shape {tuple(t.shape)} has no "
+                         f"scratch row: build caches with init_cache / "
+                         f"init_paged_cache (model.cache_leaf)")
+    scratch = base.shape[0] - 1
+    return base, torch.where(index < n, index + off // per_row, scratch)
 
 
 def _write_mask(B: int, T: int, device, active, token_mask):
@@ -367,13 +396,19 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
     """
     B, T = batch_pos.shape
     KV, hd = k.shape[2], k.shape[3]
+    ck, cv = cache["k_pages"], cache["v_pages"]
     if plan is None:
         plan = paged_write_plan(batch_pos, block_tables, page_size,
-                                active, token_mask)
-    rows, phys, within = plan
-    ck, cv = cache["k_pages"], cache["v_pages"]
-    kw = k.reshape(B * T, KV, hd)[rows]
-    vw = v.reshape(B * T, KV, hd)[rows]
+                                ck.shape[0], active, token_mask)
+    phys, within = plan
+    kw = k.reshape(B * T, KV, hd)
+    vw = v.reshape(B * T, KV, hd)
+
+    def put(leaf, src):
+        # every row written, the dropped ones to the scratch page
+        rows, at = _scratch_rows(leaf, 1, phys)
+        as_indexable(rows)[at, within] = as_indexable(src.to(leaf.dtype))
+
     quantized = "k_scales" in cache
     if quantized:
         # quantize-on-write: fp8/int8 codes plus one f32 amax scale per
@@ -381,14 +416,12 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
         prec = "int8" if ck.dtype == torch.int8 else "fp8"
         kq, ksc = quantize_kv(kw, prec)
         vq, vsc = quantize_kv(vw, prec)
-        as_indexable(ck)[phys, within] = as_indexable(kq)
-        as_indexable(cv)[phys, within] = as_indexable(vq)
         cks, cvs = cache["k_scales"], cache["v_scales"]
-        cks[phys, within] = ksc
-        cvs[phys, within] = vsc
+        for leaf, src in ((ck, kq), (cv, vq), (cks, ksc), (cvs, vsc)):
+            put(leaf, src)
     else:
-        ck[phys, within] = kw.to(ck.dtype)
-        cv[phys, within] = vw.to(cv.dtype)
+        put(ck, kw)
+        put(cv, vw)
         cks = cvs = None
     if T == 1:
         lengths = batch_pos[:, 0] + 1
@@ -463,8 +496,9 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
         assert block_tables is not None and page_size > 0, \
             "paged cache needs block_tables + page_size"
         if "paged" not in plans:
-            plans["paged"] = paged_write_plan(batch_pos, block_tables,
-                                              page_size, active, token_mask)
+            plans["paged"] = paged_write_plan(
+                batch_pos, block_tables, page_size,
+                cache["k_pages"].shape[0], active, token_mask)
         y, cache = _paged_attention_fwd(
             p, q, k, v, cfg, cache, batch_pos, block_tables, page_size,
             active, token_mask, plan=plans["paged"])
@@ -510,10 +544,17 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
     if key not in plans:
         plans[key] = dense_write_plan(batch_pos, S_buf, ring, active,
                                       token_mask, base)
-    b, t, slot = plans[key]
-    ck[b, slot] = k[b, t].to(ck.dtype)
-    cv[b, slot] = v[b, t].to(cv.dtype)
-    cpos[b, slot] = batch_pos[b, t].to(cpos.dtype)
+    plan = plans[key]
+    if isinstance(plan, tuple):          # a meta chunk's (b, t, slot)
+        b, t, slot = plan
+        ck[b, slot] = k[b, t].to(ck.dtype)
+        cv[b, slot] = v[b, t].to(cv.dtype)
+        cpos[b, slot] = batch_pos[b, t].to(cpos.dtype)
+    else:
+        for leaf, src in ((ck, k.flatten(0, 1)), (cv, v.flatten(0, 1)),
+                          (cpos, batch_pos.reshape(-1))):
+            rows, at = _scratch_rows(leaf, 2, plan)
+            rows[at] = src.to(leaf.dtype)
 
     if seq is not None:
         if T <= 8:          # decode, as the reference's criterion reads

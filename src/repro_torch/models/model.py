@@ -39,13 +39,15 @@ from repro_torch.models.mixers import (
 )
 from repro_torch.models.tp import tp_axis, tp_context, tp_rank
 from repro_torch.utils.device import resolve_device, torch_dtype
+from repro_torch.utils.tree import tree_leaves
 
 
 def _sinusoidal_of(pos, dim: int):
-    """Sinusoidal embedding of integer positions (any device)."""
+    """Sinusoidal embedding of integer positions (any device; the base is
+    filled on the device, so nothing is copied from the host)."""
     i = torch.arange(dim // 2, dtype=torch.float32, device=pos.device)
     ang = pos.float()[:, None] / torch.pow(
-        torch.tensor(10000.0, device=pos.device), 2 * i / dim)[None, :]
+        torch.full((), 10000.0, device=pos.device), 2 * i / dim)[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
@@ -65,6 +67,7 @@ def _layer_kinds(cfg: ModelConfig):
 # ==========================================================================
 # parameter construction
 # ==========================================================================
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None, abstract: bool = False):
     """Random weights with the structure the reference's ``init_params``
@@ -88,22 +91,32 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if generator is None and not abstract:
         generator = torch.Generator(device=dev).manual_seed(0)
     dt = torch_dtype(cfg.dtype)
+    scratch = None
+    if not abstract:
+        # every leaf is drawn in f32 into one buffer of the largest
+        # leaf's size, then rounded into its own tensor: a draw per leaf
+        # would leave the rounded weights scattered through the freed
+        # draws' blocks, and a near-full card with holes no CUDA graph
+        # pool can use
+        scratch = torch.empty(max(
+            t.numel() for t in tree_leaves(init_params(cfg, abstract=True))),
+            dtype=torch.float32, device=dev)
+
+    def draw(fn, *shape):
+        w = scratch[:math.prod(shape)].view(shape)
+        return fn(shape, generator=generator, out=w)
 
     def dense(*shape, scale=None):
         if abstract:
             return torch.empty(shape, dtype=dt, device=dev)
         if scale is None:
             scale = 1.0 / math.sqrt(shape[0])
-        w = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return (w.mul_(scale)).to(dt)
+        return draw(torch.randn, *shape).mul_(scale).to(dt, copy=True)
 
     def uniform(n, lo, hi):
         if abstract:
             return torch.empty(n, dtype=dt, device=dev)
-        w = torch.rand(n, generator=generator, device=dev,
-                       dtype=torch.float32)
-        return (w.mul_(hi - lo).add_(lo)).to(dt)
+        return draw(torch.rand, n).mul_(hi - lo).add_(lo).to(dt, copy=True)
 
     def zeros(n):
         return torch.zeros(n, dtype=dt, device=dev)
@@ -188,12 +201,41 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["pos_embed"] = dense(
             32_768 if cfg.arch_type != "audio" else 65_536, cfg.d_model,
             scale=0.02)
+    if scratch is not None and dev.type == "cuda":
+        # hand the draw buffer back to the device: left cached, the next
+        # large tensors (a KV pool) would be carved from it, and the rest
+        # of it would stay a hole that no other stream or graph pool can use
+        del scratch
+        torch.cuda.empty_cache()
     return params
 
 
 # ==========================================================================
 # dense cache construction
 # ==========================================================================
+#: The cache leaves a write plan writes row by row, by the number of their
+#: dims after the group axis that index a row: a page of the pool, or a
+#: (slot, position) pair of the dense cache.
+ROW_DIMS = {"k_pages": 1, "v_pages": 1, "k_scales": 1, "v_scales": 1,
+            "k": 2, "v": 2, "pos": 2}
+
+
+def cache_leaf(shape, dtype, device, fill=0, row_dims: int = 1):
+    """A cache leaf of ``shape`` (G, rows..., rest...) full of ``fill``,
+    followed in its storage by one scratch row: the first G * n_rows rows
+    of a contiguous (G * n_rows + 1, rest...) tensor.  The write plans
+    (``mixers.paged_write_plan`` / ``dense_write_plan``) aim the rows that
+    write nothing there, as the reference aims them past the end with
+    ``mode="drop"``, so their length never depends on the data.  The
+    leaf is contiguous, with a plain tensor's shape, dtype and values;
+    nothing that reads it sees the scratch row."""
+    n = math.prod(shape[:1 + row_dims])
+    backing = (torch.zeros if fill == 0 else
+               lambda s, **kw: torch.full(s, fill, **kw))(
+        (n + 1, *shape[1 + row_dims:]), dtype=dtype, device=device)
+    return backing[:n].view(shape)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                window_override: Optional[int] = None, device=None,
                n_kv_heads: Optional[int] = None, abstract: bool = False):
@@ -205,7 +247,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     tail; tail-block caches without the group axis; cross K/V for every
     decoder layer.  ``n_kv_heads`` (default ``cfg.n_kv_heads``) is the KV
     heads a cache holds: a shard of a sharded instance holds its slice.
-    ``abstract=True`` builds the same tree as ``meta`` tensors."""
+    ``abstract=True`` builds the same tree as ``meta`` tensors.  The
+    attention leaves keep one scratch row after their rows
+    (``cache_leaf``) for the write plan's dropped rows."""
     dev = torch.device("meta") if abstract else resolve_device(device)
     G = cfg.n_groups
     KV = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
@@ -223,10 +267,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if kind_eff in ("attn", "local_attn"):
             S_buf = min(max_len, eff_window) \
                 if (kind_eff == "local_attn" and eff_window) else max_len
-            c = {"k": zeros((G, batch, S_buf, KV, cfg.hd)),
-                 "v": zeros((G, batch, S_buf, KV, cfg.hd)),
-                 "pos": torch.full((G, batch, S_buf), -1, dtype=torch.int32,
-                                   device=dev)}
+            shape = (G, batch, S_buf, KV, cfg.hd)
+            c = {"k": cache_leaf(shape, dt, dev, row_dims=2),
+                 "v": cache_leaf(shape, dt, dev, row_dims=2),
+                 "pos": cache_leaf(shape[:3], torch.int32, dev, -1, 2)}
         elif kind == "ssd":
             c = {"state": zeros((G, batch, cfg.ssm_heads, cfg.ssm_head_dim,
                                  cfg.ssm_state), torch.float32),
@@ -281,8 +325,10 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     logical positions to (page, offset) through the engine's block
     tables.  ``n_kv_heads`` (default ``cfg.n_kv_heads``) is the KV heads
     the pool holds: each shard of a sharded instance allocates its own
-    pool at its slice of the heads, contiguous, never a view of a whole
-    pool (the kernel wrappers would copy a strided view on every call)."""
+    pool at its slice of the heads, never a view of a whole pool (the
+    kernel wrappers would copy a strided view on every call).  Each leaf
+    keeps a scratch page after its pages (``cache_leaf``), where the
+    write plan's dropped rows land."""
     from repro_torch.core.precision import get_precision
     from repro_torch.kernels.ops import kv_storage_dtype
 
@@ -298,13 +344,11 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
         shape = (G, n_pages, page_size,
                  cfg.n_kv_heads if n_kv_heads is None else n_kv_heads,
                  cfg.hd)
-        c = {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
-             "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
+        c = {"k_pages": cache_leaf(shape, dt, dev),
+             "v_pages": cache_leaf(shape, dt, dev)}
         if prec.quantized:
-            c["k_scales"] = torch.zeros((G, n_pages, page_size),
-                                        dtype=torch.float32, device=dev)
-            c["v_scales"] = torch.zeros((G, n_pages, page_size),
-                                        dtype=torch.float32, device=dev)
+            c["k_scales"] = cache_leaf(shape[:3], torch.float32, dev)
+            c["v_scales"] = cache_leaf(shape[:3], torch.float32, dev)
         caches.append(c)
     return {"blocks": tuple(caches)}
 
@@ -505,8 +549,9 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         x = x[:, -logits_slice:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(x.dtype)).float()
-    return logits, new_cache, torch.as_tensor(aux_total, dtype=torch.float32,
-                                              device=dev)
+    if not torch.is_tensor(aux_total):   # filled on the device: no copy
+        aux_total = torch.full((), aux_total, device=dev)
+    return logits, new_cache, aux_total.to(torch.float32)
 
 
 # ==========================================================================

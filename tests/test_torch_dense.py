@@ -175,8 +175,16 @@ def _empty_cache(B, S, KV, hd):
 
 
 def _both(c):
+    """One layer's cache for each package; the port's written leaves
+    with the scratch row its write plans aim dropped rows at."""
+    def leaf(k, v):
+        if k not in tmodel.ROW_DIMS:
+            return torch.from_numpy(v.copy())
+        t = tmodel.cache_leaf((1, *v.shape), torch.from_numpy(v).dtype,
+                              "cpu", row_dims=tmodel.ROW_DIMS[k])[0]
+        return t.copy_(torch.from_numpy(v))
     return ({k: jnp.asarray(v) for k, v in c.items()},
-            {k: torch.from_numpy(v.copy()) for k, v in c.items()})
+            {k: leaf(k, v) for k, v in c.items()})
 
 
 def _run_both(jcfg, jp, cfg, tp, x, jcache, tcache, **kw):

@@ -317,10 +317,13 @@ def test_whole_chunk_plan_equals_dense_write_plan(T, ring, base, S_buf):
         else:
             p0 = rng.integers(base, base + S_buf - T + 1, 3)
         pos = tmx._batch_positions(torch.from_numpy(p0), 3, T, "cpu")
-        got = tmx._whole_chunk_plan(pos, ring, base)
+        b, t, slot = tmx._whole_chunk_plan(pos, ring, base)
+        # the same writes as a static plan: every token's destination,
+        # the scratch row (3 * S_buf) for the tokens not written
+        got = torch.full((3 * T,), 3 * S_buf, dtype=torch.long)
+        got[b * T + t] = b * S_buf + slot
         exp = tmx.dense_write_plan(pos, S_buf, ring, base=base)
-        for g, e in zip(got, exp):
-            assert torch.equal(g, e)
+        assert torch.equal(got, exp)
 
 
 def test_dense_write_plan_on_meta_takes_the_data_free_branch():
@@ -383,13 +386,16 @@ def test_max_all_reduce_over_a_shard_group():
 
 
 def _seq_cache(cache, rank, n):
-    """Shard ``rank`` of ``n`` of a dense cache's sequence dim."""
-    def cut(t):
+    """Shard ``rank`` of ``n`` of a dense cache's sequence dim, in leaves
+    with their scratch rows (``model.cache_leaf``)."""
+    def cut(k, t):
         if t.dim() >= 3:                          # (G, B, S, ...)
             S = t.shape[2] // n
-            return t[:, :, rank * S:(rank + 1) * S].clone()
-        return t.clone()
-    return {"blocks": tuple({k: cut(v) for k, v in c.items()}
+            t = t[:, :, rank * S:(rank + 1) * S]
+        out = tmodel.cache_leaf(t.shape, t.dtype, t.device,
+                                row_dims=tmodel.ROW_DIMS.get(k, 1))
+        return out.copy_(t)
+    return {"blocks": tuple({k: cut(k, v) for k, v in c.items()}
                             for c in cache["blocks"])}
 
 

@@ -563,3 +563,158 @@ def test_ep2_moe_routing_on_card_equals_ep1(cuda_device):
                 assert torch.equal(r[key], exp[key]), (cf, key)
         for yc, _ in outs:
             torch.testing.assert_close(yc, y, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: one CUDA graph per (T, n_pp) key
+# ---------------------------------------------------------------------------
+GRAPH_CASES = [("qwen2.5-14b", "bf16"), ("qwen2.5-14b", "fp8"),
+               ("qwen2.5-14b", "int8"), ("recurrentgemma-9b", None),
+               ("mamba2-780m", None)]
+
+
+def _graph_pair(arch, prec, device):
+    """An eager and a graphed engine of ``arch``'s smoke config in bf16 on
+    one set of weights, four slots allocated on each."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine import InstanceEngine
+    from repro_torch.models.model import init_params
+    cfg = get_smoke_config(arch).with_(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    kw = dict(n_slots=4, max_len=128, max_chunk=64)
+    kw.update(dict(kv_mode="paged", page_size=8, kv_precision=prec)
+              if prec else dict(kv_mode="dense"))
+    engines = (InstanceEngine(cfg, params, graphs=False, **kw),
+               InstanceEngine(cfg, params, **kw))
+    for eng in engines:
+        for i in range(4):
+            eng.alloc(f"r{i}")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    return cfg, engines, toks
+
+
+def _items(toks, spans):
+    from repro_torch.engine import BatchItem
+    return [BatchItem(s, toks[s, p:p + n], p, True) for s, p, n in spans]
+
+
+#: a prefill in two T buckets, a mixed batch, then decode steps
+GRAPH_SPANS = ([[(0, 0, 40)], [(1, 0, 9), (2, 0, 3)],
+                [(0, 40, 1), (1, 9, 20), (3, 0, 5)]]
+               + [[(0, 41 + i, 1), (1, 29 + i, 1), (2, 3 + i, 1),
+                   (3, 5 + i, 1)] for i in range(4)])
+
+
+def _cache_bytes(eng):
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, path + (i,))
+        else:
+            out[path] = tree.contiguous().view(torch.uint8).clone()
+
+    walk(eng.cache, ())
+    return out
+
+
+@pytest.mark.parametrize("arch,prec", GRAPH_CASES)
+def test_graphed_steps_equal_eager_steps(cuda_device, arch, prec):
+    """The same items through an eager and a graphed engine: bit-equal
+    logits and byte-equal caches after every step, the same kernel
+    launches counted, one capture per (T, n_pp) key."""
+    from repro_torch.kernels.ops import launch_counts
+    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device)
+    counts = {}
+    for spans in GRAPH_SPANS:
+        items = _items(toks, spans)
+        outs = []
+        for label, eng in (("eager", eager), ("graphed", graphed)):
+            before = launch_counts()
+            outs.append(eng.run_batch(items))
+            for k, n in launch_counts().items():
+                counts.setdefault(label, {}).setdefault(k, 0)
+                counts[label][k] += n - before[k]
+        for s in outs[0]:
+            assert np.array_equal(outs[0][s].view(np.uint32),
+                                  outs[1][s].view(np.uint32)), (spans, s)
+        ce, cg = _cache_bytes(eager), _cache_bytes(graphed)
+        for key in ce:
+            assert torch.equal(ce[key], cg[key]), (spans, key)
+    assert counts["eager"] == counts["graphed"]
+    assert graphed.captures == len(graphed._graphs) >= 3
+    assert eager.captures == 0
+
+
+@pytest.mark.parametrize("arch,prec", [GRAPH_CASES[0], GRAPH_CASES[4]])
+def test_two_inflight_handles_of_one_key_keep_their_logits(cuda_device,
+                                                           arch, prec):
+    """Two steps of one key dispatched before either is collected (the
+    session's dispatch-ahead) each keep their own logits: those the eager
+    engine gives the same steps one at a time."""
+    from repro_torch.engine.runner import bucket_of
+    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device)
+    for spans in GRAPH_SPANS[:3]:
+        for eng in (eager, graphed):
+            eng.run_batch(_items(toks, spans))
+    steps = GRAPH_SPANS[3:5]
+    exp = [eager.run_batch(_items(toks, spans)) for spans in steps]
+    # capture the decode key first (its warm-up changes no cache byte),
+    # so the two dispatches below only replay
+    n_pp = (bucket_of(max(1, graphed.allocator.max_table_len),
+                      graphed.page_buckets) if graphed.paged else 0)
+    graphed._capture(1, n_pp)
+    handles = [graphed.dispatch_batch(_items(toks, spans))
+               for spans in steps]
+    assert graphed.captures == len(graphed._graphs)
+    got = [graphed.collect_batch(h) for h in handles]
+    for g, e in zip(got, exp):
+        for s in e:
+            assert np.array_equal(g[s], e[s])
+    assert not np.array_equal(got[0][0], got[1][0])
+
+
+@pytest.mark.parametrize("arch,prec", [GRAPH_CASES[0], GRAPH_CASES[3]])
+def test_dispatch_makes_no_synchronizing_call(cuda_device, arch, prec):
+    """With every key captured, ``dispatch_batch`` of a prefill, a mixed
+    and a decode step raises nothing under the sync debug mode's
+    ``error``, graphed and eager."""
+    _, engines, toks = _graph_pair(arch, prec, cuda_device)
+    pairs = [([[(0, 0, 40)], [(1, 0, 40)]]),
+             ([[(0, 40, 1), (2, 0, 20)], [(1, 40, 1), (3, 0, 20)]]),
+             ([[(s, 60 + i, 1) for s in range(4)] for i in range(2)])]
+    for first, second in pairs:
+        for eng in engines:
+            eng.run_batch(_items(toks, first))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                handle = eng.dispatch_batch(_items(toks, second))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eng.collect_batch(handle)
+
+
+def test_a_failed_capture_raises_and_runs_nothing_eager(cuda_device,
+                                                        monkeypatch):
+    """A step that cannot be captured raises out of ``dispatch_batch``;
+    the engine keeps no graph for the key and runs no eager step in its
+    place."""
+    from repro_torch.engine import runner
+    _, (_, graphed), toks = _graph_pair("qwen2.5-14b", "bf16", cuda_device)
+    real = runner.forward
+
+    def unsafe(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()         # illegal while capturing
+        return real(*a, **kw)
+
+    monkeypatch.setattr(runner, "forward", unsafe)
+    with pytest.raises(RuntimeError):
+        graphed.run_batch(_items(toks, GRAPH_SPANS[0]))
+    assert not graphed._graphs and graphed.iterations == 0
