@@ -32,12 +32,15 @@ exits non-zero without the final result line:
 4. model   — Qwen2.5-14B at full width and 2 layers, paged forward once
              through the kernels and once through the plain attention.
 4b. graphs — the compiled step: for Qwen2.5-14B at full width and 2
-             layers on bf16, fp8 and int8 pools, and RecurrentGemma-9B and
-             Mamba2-780M at full width and 4 layers on the dense cache, an
-             eager engine (``graphs=False``) and a graphed one on the same
+             layers on bf16, fp8 and int8 pools, RecurrentGemma-9B and
+             Mamba2-780M at full width and 4 layers on the dense cache,
+             and the sharded engines (two shards time-sharing the card) of
+             the 14B at TP=2 and 2 layers on a bf16 pool and on the dense
+             cache and of Qwen3-30B-A3B at EP=2 and 2 layers, an eager
+             engine (``graphs=False``) and a graphed one on the same
              weights take the same items (prefill chunks in three T
              buckets, a mixed batch, 8 decode steps): logits bit-equal and
-             every cache tensor byte-equal after every step, every
+             every shard's cache tensors byte-equal after every step, every
              capture's all-inactive warm-up leaving the caches' bytes as
              they were, equal launch counts, and no synchronizing call in
              ``dispatch_batch`` of a prefill, a mixed and a decode step
@@ -51,11 +54,10 @@ exits non-zero without the final result line:
              after.  Then the same requests under colocation.  Then 8
              decode steps (8 slots, context 1024) of an eager and of a
              graphed engine: wall time a step (CUDA events) and device
-             time (torch.profiler).  Every serving run of a one-device
-             engine in every phase but ``tp`` goes through CUDA graphs
-             (checked step by step), and its launch counts must equal
-             the eager step's for the same steps (one a paged attention
-             layer and shard).
+             time (torch.profiler).  Every serving run on the card, sharded
+             instances' included, goes through CUDA graphs (checked step
+             by step), and its launch counts must equal the eager step's
+             for the same steps (one a paged attention layer and shard).
 6. nemotron — Nemotron-4-340B (H 96, KV 8, hd 192; LayerNorm, squared
              ReLU, half rotary): (a) both kernels against their plain
              versions at its head layout and the serving shapes, bf16, fp8
@@ -79,19 +81,20 @@ exits non-zero without the final result line:
              weights: two /v1/completions, one streamed
              /v1/chat/completions, /metrics, clean shutdown.
 9. tp      — tensor- and expert-parallel instances, two shards
-             time-sharing the card, every step eager (sharded instances
-             run no graphs; the phase's width-1 engines take
-             ``graphs=False``): (a) both kernels against their plain
-             versions and timed at the shards' head counts (Qwen2.5-14B
-             H 20 / KV 4, Qwen3-30B-A3B H 16 / KV 2); (b) Qwen2.5-14B at
-             full width and 2 layers, f32, a TP=2 instance on the card
-             against the one-device engine on the CPU; (c) the whole
-             Qwen2.5-14B in bf16 on the serve phase's weights: TP=2
-             against TP=1 (prefill logits, 16 greedy steps, decode step
-             wall beside the cost model's prediction), a TP=2 -> TP=1 ->
-             TP=2 handoff re-exported byte-equal, and the serve phase's 8
-             requests through DynaServe on a [1, 2]-wide pool (counted;
-             peak memory within 1.1x of the serve phase's); (d)
+             time-sharing the card, every engine graphed (one CUDA graph
+             a (T, n_pp) key holds both shards and every sum): (a) both
+             kernels against their plain versions and timed at the
+             shards' head counts (Qwen2.5-14B H 20 / KV 4, Qwen3-30B-A3B
+             H 16 / KV 2); (b) Qwen2.5-14B at full width and 2 layers,
+             f32, a TP=2 instance on the card against the one-device
+             engine on the CPU; (c) the whole Qwen2.5-14B in bf16 on the
+             serve phase's weights: TP=2 against TP=1 (prefill logits,
+             16 greedy steps), a TP=2 -> TP=1 -> TP=2 handoff re-exported
+             byte-equal, a decode step of one request at width 1 and 2,
+             eager and graphed (wall, device time, idle share, beside the
+             cost model's price), and the serve phase's 8 requests
+             through DynaServe on a [1, 2]-wide pool (counted; peak
+             memory within 1.1x of the serve phase's); (d)
              Qwen3-30B-A3B: one MoE layer in f32, EP=2 against EP=1 on
              the card (identical routing), then all 48 layers serving the
              8 requests on two EP=2 instances (counted, dropped slots).
@@ -1251,7 +1254,7 @@ def make_requests(seed: int, vocab: int, prefill_heavy=(1024, 2048, 16),
 
 def serve(cfg, params, reqs, policy: str, *, n_slots=8, n_pages=4096,
           page=8, max_chunk=512, transfer_chunk=128, slo=0.1,
-          devices_per_instance=1, graphs=True):
+          devices_per_instance=1):
     from repro_torch.core.session import ServeSession, SessionConfig
     from repro_torch.engine.backend import EngineBackend
     from repro_torch.sim.policies import ColocationPolicy, DynaServePolicy
@@ -1260,8 +1263,7 @@ def serve(cfg, params, reqs, policy: str, *, n_slots=8, n_pages=4096,
                             page_size=page, n_pages=n_pages,
                             max_chunk=max_chunk,
                             transfer_chunk=transfer_chunk,
-                            devices_per_instance=devices_per_instance,
-                            graphs=graphs)
+                            devices_per_instance=devices_per_instance)
     pol = (DynaServePolicy(backend.cost, slo, transfer_chunk=transfer_chunk)
            if policy == "dynaserve"
            else ColocationPolicy(chunk=max_chunk, slo_aware=False))
@@ -1322,10 +1324,10 @@ def tally_line(tally) -> str:
             f"graphs, {n} captures in {sec:.2f} s")
 
 
-def check_graphed(tally, what: str, device: str, eager: bool = False):
-    """On the card every step replays a graph, unless the run was to be
-    eager (sharded instances, or ``graphs=False``)."""
-    want = 0 if eager or device != "cuda" else tally["steps"]
+def check_graphed(tally, what: str, device: str):
+    """On the card every step replays a graph (sharded instances'
+    included); on the CPU none does."""
+    want = tally["steps"] if device == "cuda" else 0
     if tally["graphed"] != want:
         raise AssertionError(f"{what}: {tally_line(tally)}, not {want}")
 
@@ -1357,19 +1359,15 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
     if moved <= 0:
         raise AssertionError("no KV handoff: DynaServe split no request")
     report(label, m, moved, wall, card)
-    eager = sizes.get("devices_per_instance", 1) != 1 or \
-        not sizes.get("graphs", True)
     log(f"[serve] {label} kernel launches: {launches}; "
         f"chunked_prefill_attention by body: {bodies}; max allocated in "
         f"the run {peak / 1e9:.3f} GB, max reserved {held / 1e9:.3f} GB "
         f"(the graph pool's temporaries are reserved, not allocated, "
         f"while a graph replays; the pool holds "
         f"{'not measured' if pool is None else f'{pool / 1e9:.3f} GB'} at "
-        f"the end); {tally_line(tally)}"
-        f"{' (the tp phase runs eager steps)' if eager else ''}; "
-        f"the eager step launches {tally['eager_launches']} for these "
+        f"the end); {tally_line(tally)}; the eager step launches {tally['eager_launches']} for these "
         f"steps")
-    check_graphed(tally, label, device, eager)
+    check_graphed(tally, label, device)
     if device == "cuda" and launches != tally["eager_launches"]:
         raise AssertionError(f"{label}: launches counted {launches}, the "
                              f"eager step's for the same steps "
@@ -1386,14 +1384,15 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
 
 
 def time_decode(cfg, params, card: str, n_slots: int = 8, ctx: int = 1024,
-                chunk: int = 512, steps: int = 8, device="cuda"):
+                chunk: int = 512, steps: int = 8, device="cuda",
+                width: int = 1, tag: str = "serve"):
     """``steps`` decode steps of every slot of one engine at context
     ``ctx``, eager (``graphs=False``) and then graphed, each mode on its
-    own engine: wall time a step from CUDA events around the loop (each
-    step dispatched and its logits collected, as the session does),
-    device time a step from torch.profiler over the same loop run again,
-    and the idle share 1 - device / wall.  Returns {mode: (wall ms,
-    device ms)}."""
+    own engine (``width`` shards time-sharing the card): wall time a step
+    from CUDA events around the loop (each step dispatched and its logits
+    collected, as the session does), device time a step from
+    torch.profiler over the same loop run again, and the idle share 1 -
+    device / wall.  Returns {mode: (wall ms, device ms)}."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1405,7 +1404,11 @@ def time_decode(cfg, params, card: str, n_slots: int = 8, ctx: int = 1024,
         eng = InstanceEngine(cfg, params, n_slots=n_slots, page_size=8,
                              n_pages=n_slots * (ctx + chunk) // 8,
                              max_chunk=chunk, max_len=ctx + chunk,
-                             graphs=mode == "graphed")
+                             graphs=mode == "graphed",
+                             devices=[device] * width)
+        if eng.graphs != (mode == "graphed"):
+            raise AssertionError(f"a {mode} engine of width {width} has "
+                                 f"graphs={eng.graphs}")
         slots = [eng.alloc(f"r{i}") for i in range(n_slots)]
         for lo in range(0, ctx, chunk):
             eng.run_batch([BatchItem(s, toks[i, lo:lo + chunk], lo)
@@ -1441,7 +1444,9 @@ def time_decode(cfg, params, card: str, n_slots: int = 8, ctx: int = 1024,
                 break
         dev = busy / steps / 1e3
         out[mode] = (wall, dev)
-        log(f"[serve] {cfg.name} decode step, {mode} "
+        log(f"[{tag}] {cfg.name} decode step, "
+            f"{f'width {width} (two shards time-sharing the card), ' if width > 1 else ''}"
+            f"{mode} "
             f"({'one CUDA graph a (T, n_pp) key' if mode == 'graphed' else 'graphs=False'}"
             f"): B={n_slots}, T=1, context {ctx}: wall "
             f"{wall:.3f} ms a step (CUDA events over {steps} steps, logits "
@@ -1449,6 +1454,7 @@ def time_decode(cfg, params, card: str, n_slots: int = 8, ctx: int = 1024,
             f"{f'{dev:.3f} ms' if busy else 'not measured (the profiler recorded no kernel)'}"
             f"{f', idle share {1 - dev / wall:.3f}' if busy else ''}; "
             f"{card}")
+        eng.close()
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1942,29 +1948,59 @@ TP_BF16_RTOL = 0.1
 def launches_by_heads(counts: dict):
     """Count the model's attention kernel calls by (kernel, H, KV) of
     their query and key tensors, from every shard thread (the wrappers
-    count launches only in total).  For the report only; the port itself
-    never does this."""
+    count launches only in total).  Graph-aware, as the wrappers'
+    counters are: the calls made while a thread's stream captures are
+    kept with the graph and added at each of its replays, and a
+    capture's warm-up counts nothing.  For the report only; the port
+    itself never does this."""
     import threading
+    import torch
+    from repro_torch.engine import runner
     from repro_torch.models import mixers
     lock = threading.Lock()
     saved = (mixers.paged_decode_attention_op,
              mixers.chunked_prefill_attention_op)
+    cls = runner.InstanceEngine
+    capture, replay = cls._capture, cls._replay
+    captured, by_graph = {}, {}      # the running capture's; id(graph) ->
+
+    def add(into, key, n):
+        with lock:
+            into[key] = into.get(key, 0) + n
 
     def counted(name, op):
         def call(q, k, *a):
             key = (name, q.shape[-2], k.shape[-2])
-            with lock:
-                counts[key] = counts.get(key, 0) + 1
+            add(captured if q.is_cuda and
+                torch.cuda.is_current_stream_capturing() else counts, key, 1)
             return op(q, k, *a)
         return call
 
+    def counted_capture(self, T, n_pp):
+        before = dict(counts)
+        captured.clear()
+        g = capture(self, T, n_pp)
+        with lock:                       # the warm-up's calls
+            counts.clear()
+            counts.update(before)
+        by_graph[id(g)] = dict(captured)
+        return g
+
+    def counted_replay(self, T, n_pp, packed):
+        out = replay(self, T, n_pp, packed)
+        for key, n in by_graph[id(self._graphs[(T, n_pp)])].items():
+            add(counts, key, n)
+        return out
+
     mixers.paged_decode_attention_op = counted(KERNELS[0], saved[0])
     mixers.chunked_prefill_attention_op = counted(KERNELS[1], saved[1])
+    cls._capture, cls._replay = counted_capture, counted_replay
     try:
         yield counts
     finally:
         (mixers.paged_decode_attention_op,
          mixers.chunked_prefill_attention_op) = saved
+        cls._capture, cls._replay = capture, replay
 
 
 def by_heads(counts: dict) -> str:
@@ -1974,28 +2010,21 @@ def by_heads(counts: dict) -> str:
 
 def greedy_pair(engines, prompt, steps: int):
     """Prefill ``prompt`` on every engine, then ``steps`` decode steps
-    fed the first engine's greedy token, each step timed to its logits
-    on the host.  Returns per engine the list of logits (prefill first)
-    and the decode steps' wall seconds, and the fed tokens."""
+    fed the first engine's greedy token.  Returns per engine the list of
+    logits (prefill first) and its slot."""
     import numpy as np
     from repro_torch.engine import BatchItem
     slots = [e.alloc("r") for e in engines]
     logits = [[] for _ in engines]
-    walls = [[] for _ in engines]
-    fed, pos = [], len(prompt)
+    pos = len(prompt)
     for i, (e, s) in enumerate(zip(engines, slots)):
         logits[i].append(e.run_batch([BatchItem(s, prompt, 0, True)])[s])
     for _ in range(steps):
-        tok = int(logits[0][-1].argmax())
-        fed.append(tok)
+        tok = np.array([int(logits[0][-1].argmax())], np.int32)
         for i, (e, s) in enumerate(zip(engines, slots)):
-            t0 = time.perf_counter()
-            out = e.run_batch([BatchItem(s, np.array([tok], np.int32), pos,
-                                         True)])
-            walls[i].append(time.perf_counter() - t0)
-            logits[i].append(out[s])
+            logits[i].append(e.run_batch([BatchItem(s, tok, pos, True)])[s])
         pos += 1
-    return logits, walls, fed, slots
+    return logits, slots
 
 
 def run_tp_card_vs_cpu(seed: int, n_layers: int = 2, prompt_len: int = 300,
@@ -2023,7 +2052,7 @@ def run_tp_card_vs_cpu(seed: int, n_layers: int = 2, prompt_len: int = 300,
     with torch.no_grad(), launches_by_heads(counts):
         engines = [InstanceEngine(cfg, host, **kw),
                    InstanceEngine(cfg, params, devices=[device] * 2, **kw)]
-        (ref, got), _, fed, _ = greedy_pair(engines, prompt, steps)
+        (ref, got), _ = greedy_pair(engines, prompt, steps)
     bodies = {b: n - before[b] for b, n in cpa.body_launches.items()
               if n != before[b]}
     scale = max(float(np.abs(r).max()) for r in ref)
@@ -2072,8 +2101,9 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
                  prompt_len: int = 512, steps: int = 16, cfg=None,
                  device="cuda"):
     """The whole Qwen2.5-14B in bf16 on the serve phase's weights (the
-    same seed): TP=2 against TP=1 on the card, a TP=2 -> TP=1 -> TP=2
-    handoff, and the serve phase's 8 requests through DynaServe on a
+    same seed), every engine graphed: TP=2 against TP=1 on the card, a
+    TP=2 -> TP=1 -> TP=2 handoff, a decode step at width 1 and 2, eager
+    and graphed, and the serve phase's 8 requests through DynaServe on a
     [1, 2]-wide pool, counted.  Returns the session's launches."""
     import numpy as np
     import torch
@@ -2098,10 +2128,12 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
     kw = dict(n_slots=2, max_len=1024, max_chunk=512)
     counts = {}
     with launches_by_heads(counts):
-        one = InstanceEngine(cfg, params, graphs=False, **kw)
+        one = InstanceEngine(cfg, params, **kw)
         two = InstanceEngine(cfg, params, devices=[device] * 2, **kw)
-        (l1, l2), (w1, w2), fed, (s1, s2) = greedy_pair([one, two], prompt,
-                                                        steps)
+        if device == "cuda" and not (one.graphs and two.graphs):
+            raise AssertionError("a width-1 or width-2 engine on the card "
+                                 "does not graph its steps")
+        (l1, l2), (s1, s2) = greedy_pair([one, two], prompt, steps)
     scale = float(np.abs(l1[0]).max())
     err = float(np.abs(l1[0] - l2[0]).max())
     if not math.isfinite(err) or err > TP_BF16_RTOL * scale:
@@ -2142,39 +2174,32 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
     moved = sum(t.numel() * t.element_size() for p in first
                 for pc in p["pages"] for t in pc.values())
     log(f"[tp] handoff TP=2 -> TP=1 -> TP=2 of {upto} tokens in "
-        f"{len(first)} pieces ({moved} B): every piece re-exports "
-        f"byte-equal at each width; the next decode step from the source "
-        f"slot and from the twice-imported slot: logits max abs diff "
-        f"{float(np.abs(out[s2] - out[c]).max()):.3e}")
-
-    # a decode step of one request at each width: wall (the teacher-fed
-    # steps above), device time of 4 more steps, and the cost model's price
-    dev_ms = {}
-    for n, eng, slot, pos in ((1, one, b, upto), (2, two, c, upto + 1)):
-        at = [pos]
-
-        def step(eng=eng, slot=slot, at=at):
-            eng.run_batch([BatchItem(slot, tok, at[0], True)])
-            at[0] += 1
-        dev_ms[n] = (device_ms(step, 4) if device == "cuda"
-                     else (float("nan"), "not timed"))
-    ctx = prompt_len + steps // 2
-    for n, walls in ((1, w1), (2, w2)):
-        pred = BatchCostModel(cfg, H100, tp_degree=n).mixed_batch_latency(
-            0, 0, 1, ctx)
-        meas = float(np.median(walls)) * 1e3
-        log(f"[tp] decode step (eager), one request at ~{ctx} tokens, "
-            f"width {n}"
-            f"{' (two shards time-sharing the card)' if n > 1 else ''}: "
-            f"median wall {meas:.3f} ms, device {dev_ms[n][0]:.3f} ms "
-            f"({dev_ms[n][1]}), idle share {1 - dev_ms[n][0] / meas:.3f}; "
-            f"the "
-            f"cost model (H100 data sheet, tp_degree={n}) prices it at "
-            f"{pred * 1e3:.3f} ms, {meas / (pred * 1e3):.2f}x under the "
-            f"wall; card {card}")
+        f"{len(first)} pieces ({moved} B), both engines "
+        f"{'graphed' if two.graphs else 'eager'}: every "
+        f"piece re-exports byte-equal at each width; the next decode step "
+        f"from the source slot and from the twice-imported slot: logits "
+        f"max abs diff {float(np.abs(out[s2] - out[c]).max()):.3e}; "
+        f"captures: width 1 {one.captures}, width 2 {two.captures}")
+    one.close()
+    two.close()
     del one, two, out
     gc.collect()
     empty()
+
+    # a decode step of one request at each width, eager and graphed
+    # (wall, device time, idle share), beside the cost model's price
+    if device == "cuda":
+        for n in (1, 2):
+            t = time_decode(cfg, params, card, n_slots=1, ctx=prompt_len,
+                            steps=8, device=device, width=n, tag="tp")
+            pred = BatchCostModel(cfg, H100, tp_degree=n) \
+                .mixed_batch_latency(0, 0, 1, prompt_len) * 1e3
+            log(f"[tp] decode step, one request at {prompt_len} tokens, "
+                f"width {n}: the cost model (H100 data sheet, "
+                f"tp_degree={n}) prices it at {pred:.3f} ms; the eager "
+                f"wall is {t['eager'][0] / pred:.2f}x that, the graphed "
+                f"{t['graphed'][0] / pred:.2f}x; graphed / eager wall "
+                f"{t['graphed'][0] / t['eager'][0]:.3f}; card {card}")
 
     # the serve phase's 8 requests on a [1, 2]-wide pool
     reqs = make_requests(seed, cfg.vocab_size)
@@ -2183,7 +2208,7 @@ def run_tp_dense(seed: int, card: str, serve_peak=None,
         _, launches, peak = serve_counted(
             cfg, params, reqs, card, device,
             f"{cfg.name} [1, 2] dynaserve", n_slots=8, n_pages=4096,
-            max_chunk=512, devices_per_instance=[1, 2], graphs=False)
+            max_chunk=512, devices_per_instance=[1, 2])
     if not any(k[1:] == half for k in counts):
         raise AssertionError(f"the 2-wide instance launched nothing: "
                              f"{counts}")
@@ -2301,7 +2326,8 @@ def run_tp(seed: int, card: str, serve_peak=None):
     t0 = time.monotonic()
     log(f"[tp] one all_reduce between two shard threads (a one-element "
         f"CPU tensor: two turn hand-offs and an add) costs the host "
-        f"{shard_handoff_us():.1f} us; a 48-layer step has 96")
+        f"{shard_handoff_us():.1f} us; a 48-layer eager step has 96, a "
+        f"replayed graph none")
     kc = KernelChecks(seed)
     serving_paths(kc, SHARD_SHAPES)
     log_kernel_checks(kc, "at the shards' head counts ")
@@ -2322,10 +2348,10 @@ def run_tp(seed: int, card: str, serve_peak=None):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[tp] phase wall {time.monotonic() - t0:.1f} s; card {card}; every "
-        f"TP/EP row is two shards time-sharing one card; every step of the "
-        f"phase is eager (sharded instances run no graphs, and its "
-        f"one-device engines and sessions are built with graphs=False, so "
-        f"width 1 and width 2 compare like for like)")
+        f"TP/EP row is two shards time-sharing one card; every engine and "
+        f"session of the phase replays one CUDA graph a (T, n_pp) key, "
+        f"both shards and every sum in it, but the decode-step lines' "
+        f"eager engines (graphs=False, at both widths)")
     errs = {name: max(e[name] for e in kc.err.values()) for name in KERNELS}
     return launches, times, errs
 
@@ -3372,14 +3398,19 @@ def run_examples(card: str, device="cuda"):
 # phase 15: the compiled step (one CUDA graph per (T, n_pp)) against eager
 # ---------------------------------------------------------------------------
 #: (config, layers kept, page-pool precision or None for the dense cache,
-#: max_len): Qwen2.5-14B at full width on every pool format;
+#: max_len, shards): Qwen2.5-14B at full width on every pool format;
 #: RecurrentGemma-9B (its ring of 2048 and a tail block) and Mamba2-780M
-#: on the dense cache, at full width and 4 layers
-GRAPH_ENGINES = (("qwen2.5-14b", 2, "bf16", 1024),
-                 ("qwen2.5-14b", 2, "fp8", 1024),
-                 ("qwen2.5-14b", 2, "int8", 1024),
-                 ("recurrentgemma-9b", 4, None, 4096),
-                 ("mamba2-780m", 4, None, 1024))
+#: on the dense cache, at full width and 4 layers; sharded engines whose
+#: two shards time-share the card: the 14B at TP=2 on a bf16 pool and on
+#: the dense cache, Qwen3-30B-A3B at EP=2 (sharded pools are bf16 only)
+GRAPH_ENGINES = (("qwen2.5-14b", 2, "bf16", 1024, 1),
+                 ("qwen2.5-14b", 2, "fp8", 1024, 1),
+                 ("qwen2.5-14b", 2, "int8", 1024, 1),
+                 ("recurrentgemma-9b", 4, None, 4096, 1),
+                 ("mamba2-780m", 4, None, 1024, 1),
+                 ("qwen2.5-14b", 2, "bf16", 1024, 2),
+                 ("qwen2.5-14b", 2, None, 1024, 2),
+                 (MOE_PATH, 2, "bf16", 1024, 2))
 #: the items, each (slot, first position, tokens): prefill chunks in the
 #: T buckets 512, 128 and 32, then a mixed batch (a decode step, a
 #: 60-token chunk, a new 7-token prompt)
@@ -3389,10 +3420,10 @@ GRAPH_DECODE_STEPS = 8
 
 
 def cache_bytes(eng):
-    """Every cache tensor of a one-device engine, as raw bytes."""
+    """Every cache tensor of every shard of an engine, as raw bytes."""
     import torch
     return {k: v.contiguous().view(torch.uint8).clone()
-            for k, v in flat(eng.cache).items()}
+            for k, v in flat(eng.caches).items()}
 
 
 def graph_pool_bytes(device="cuda"):
@@ -3414,7 +3445,7 @@ def run_graphs(seed: int, card: str, device="cuda"):
     and a graphed one on the same weights, fed the same items
     (``GRAPH_STEPS``, then ``GRAPH_DECODE_STEPS`` decode steps of all four
     slots).  After every step the logits must be bit-equal and every
-    cache tensor byte-equal; every capture's all-inactive warm-up must
+    shard's cache tensors byte-equal; every capture's all-inactive warm-up must
     leave every cache byte as it was; the launch counters after the
     replays must equal the eager engine's; and, with every key captured,
     ``dispatch_batch`` of a prefill, a mixed and a decode step must make
@@ -3449,17 +3480,24 @@ def run_graphs(seed: int, card: str, device="cuda"):
 
     runner.InstanceEngine._capture = checked_capture
     try:
-        for name, layers, prec, max_len in GRAPH_ENGINES:
+        for name, layers, prec, max_len, width in GRAPH_ENGINES:
             cfg = get_config(name).with_(n_layers=layers)
             params = init_params(cfg, torch.Generator(device=device)
                                  .manual_seed(seed), device=device)
-            kw = dict(n_slots=4, max_len=max_len, max_chunk=512)
+            kw = dict(n_slots=4, max_len=max_len, max_chunk=512,
+                      devices=[device] * width)
             if prec is not None:
                 kw.update(kv_mode="paged", page_size=8, kv_precision=prec)
             else:
                 kw.update(kv_mode="dense")
             eager = InstanceEngine(cfg, params, graphs=False, **kw)
             graphed = InstanceEngine(cfg, params, **kw)
+            if device == "cuda" and not graphed.graphs:
+                raise AssertionError(f"{name} x{width}: the engine on the "
+                                     f"card does not graph its steps")
+            what = (f"{name} {prec or 'dense'}"
+                    + (f" {'EP' if cfg.moe_experts else 'TP'}={width}"
+                       if width > 1 else ""))
             for eng in (eager, graphed):
                 for i in range(4):
                     eng.alloc(f"r{i}")
@@ -3495,18 +3533,18 @@ def run_graphs(seed: int, card: str, device="cuda"):
                     if not np.array_equal(le[s].view(np.uint32),
                                           lg[s].view(np.uint32)):
                         raise AssertionError(
-                            f"{name} {prec or 'dense'} step {k} slot {s}: "
+                            f"{what} step {k} slot {s}: "
                             f"graphed logits differ from eager by "
                             f"{np.abs(le[s] - lg[s]).max():.3e}")
                 ce, cg = cache_bytes(eager), cache_bytes(graphed)
                 bad = [key for key in ce if not torch.equal(ce[key],
                                                             cg[key])]
                 if bad:
-                    raise AssertionError(f"{name} {prec or 'dense'} step "
-                                         f"{k}: cache bytes differ in {bad}")
+                    raise AssertionError(f"{what} step {k}: cache bytes "
+                                         f"differ in {bad}")
                 n_cmp += 1
             if launches["eager"] != launches["graphed"]:
-                raise AssertionError(f"{name}: launches eager "
+                raise AssertionError(f"{what}: launches eager "
                                      f"{launches['eager']}, graphed "
                                      f"{launches['graphed']}")
             # every key captured: the same kinds of step again, now
@@ -3532,12 +3570,13 @@ def run_graphs(seed: int, card: str, device="cuda"):
                         sync_debug(0)
                     eng.collect_batch(handle)
             pool = graph_pool_bytes(device) if device == "cuda" else None
-            log(f"[graphs] {name} ({layers} layers, full width) "
+            log(f"[graphs] {name} ({layers} layers, full width"
+                f"{'' if width == 1 else ', ' + what.split()[-1] + ', two shards time-sharing the card'}) "
                 f"{'pool ' + prec if prec else 'dense cache'}: {n_cmp} "
                 f"steps ({', '.join(str(len(st)) + ' items' for st in GRAPH_STEPS)}, "
                 f"then {GRAPH_DECODE_STEPS} decode steps of 4 slots) graphed "
-                f"vs eager: logits bit-equal, every cache tensor "
-                f"byte-equal after every step; launches equal "
+                f"vs eager: logits bit-equal, every cache tensor of every "
+                f"shard byte-equal after every step; launches equal "
                 f"{ {k: n for k, n in launches['graphed'].items() if n} or 'none (dense)'}; "
                 f"set_sync_debug_mode('error') raised nothing in "
                 f"dispatch_batch of a prefill, a mixed and a decode step on "
@@ -3545,6 +3584,8 @@ def run_graphs(seed: int, card: str, device="cuda"):
                 f"{graphed.capture_seconds:.2f} s, the shared pool "
                 f"{'not measured' if pool is None else f'{pool / 1e9:.3f} GB'}; "
                 f"{card}")
+            eager.close()
+            graphed.close()
             del eager, graphed, params
             gc.collect()
             if device == "cuda":

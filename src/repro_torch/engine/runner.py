@@ -26,20 +26,27 @@ format and ``import_state`` scatters it, so handoffs cross widths.
 Repeated devices (``["cpu", "cpu"]``, two shards of one card) behave as
 the reference's virtual devices do: the shards time-share the device.
 
-A one-device engine on a card runs its step as the reference's
-``jax.jit`` does: compiled once per ``(T, n_pp)`` bucket and dispatched
-without waiting.  At a key's first use the engine runs one eager step
-with every slot inactive (every write lands in the caches' scratch rows,
-so no cache byte changes; it builds the kernels and loads what they need
+An engine whose shards all lie on one card (a one-device engine, or a
+sharded one on a repeated device) runs its step as the reference's
+``jax.jit`` of the step (of ``shard_map`` over it, for a sharded one)
+does: compiled once per ``(T, n_pp)`` bucket and dispatched without
+waiting.  At a key's first use the engine runs one eager step with every
+slot inactive (every write lands in the caches' scratch rows, so no
+cache byte changes; it builds the kernels and loads what they need
 outside the capture), then captures the step into a CUDA graph in one
 memory pool a device, shared by every engine on it; each later step of
 that key copies its inputs into the graph's static buffer and replays
-it.  ``graphs=False`` runs the eager step instead, as a sharded engine
-and a CPU engine always do.  ``dispatch_batch`` waits on the device in
-neither mode: inputs go through pinned host buffers with non-blocking
-copies, and the write plans have static shapes.  A graph holds the
-addresses of the params and caches it read, which the engine only ever
-writes in place; a caller that rebinds one calls ``drop_graphs``.
+it.  A sharded engine's warm-up and capture run on its shard threads,
+each with the capture stream as its current stream, so the graph holds
+every shard's launches and every sum in the order of the eager step;
+a replay runs on the caller's thread and takes no turn.
+``graphs=False`` runs the eager step instead, as a CPU engine and one
+over distinct cards always do (``can_graph``).  ``dispatch_batch``
+waits on the device in neither mode: inputs go through pinned host
+buffers with non-blocking copies, and the write plans have static
+shapes.  A graph holds the addresses of the params and caches it read,
+which the engine only ever writes in place; a caller that rebinds one
+calls ``drop_graphs``.
 """
 from __future__ import annotations
 
@@ -170,6 +177,14 @@ def _capture_stream(device: torch.device):
     return _CAPTURE_STREAMS[index]
 
 
+def can_graph(devices: Sequence) -> bool:
+    """Whether an engine whose shards lie on ``devices`` captures its
+    steps: they are one CUDA device.  A graph of shards on distinct cards
+    would need a capture across devices and peer copies for the sums."""
+    distinct = {as_device(d) for d in devices}
+    return len(distinct) == 1 and distinct.pop().type == "cuda"
+
+
 def _unpack(buf: torch.Tensor, B: int, T: int, n_pp: int):
     """The step's inputs out of one packed int32 buffer: tokens (B, T),
     pos_offset, n_valid and active (B,) each, and the block tables
@@ -203,6 +218,10 @@ class InstanceEngine:
     weights' device add no weight memory; only another device gets a
     copy.  Without ``devices`` (or with one) the engine runs on the
     device of its parameters.
+
+    ``graphs`` (on by default) captures the step once per ``(T, n_pp)``
+    key where ``can_graph(self.shard_devices)``: every shard on one card.
+    ``self.graphs`` says whether this engine does.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -280,9 +299,9 @@ class InstanceEngine:
         self._group: Optional[ShardGroup] = None
         if self.tp > 1:
             self._shard_instance()
-        # the compiled step: one CUDA graph per (T, n_pp) key, on a
-        # one-device engine on a card
-        self.graphs = graphs and self.tp == 1 and self.device.type == "cuda"
+        # the compiled step: one CUDA graph per (T, n_pp) key, where
+        # every shard lies on one card
+        self.graphs = graphs and can_graph(self.shard_devices)
         self._graphs: Dict[Tuple[int, int], _Graph] = {}
         self.captures = 0
         self.capture_seconds = 0.0
@@ -571,17 +590,9 @@ class InstanceEngine:
         if self.graphs:
             logits = self._replay(T, n_pp, packed)
         else:
-            bufs = self._stage(packed, dict.fromkeys(self.shard_devices))
-
-            def step(rank):
-                # on the caller's thread for one device, else on shard
-                # rank's thread, where autograd mode and the current
-                # device are its own
-                return self._forward(rank, bufs[self.shard_devices[rank]],
-                                     T, n_pp)
-
-            logits = (step(0) if self._group is None
-                      else self._group.run(step)[0])
+            logits = self._step(
+                self._stage(packed, dict.fromkeys(self.shard_devices)),
+                T, n_pp)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -589,6 +600,22 @@ class InstanceEngine:
         self.iterations += 1
         self.tokens_processed += int(sum(len(it.tokens) for it in items))
         return StepHandle(items=items, logits=logits, event=event)
+
+    def _step(self, bufs: Dict[torch.device, torch.Tensor], T: int,
+              n_pp: int, stream=None) -> torch.Tensor:
+        """Every shard's step on its device's packed inputs ``bufs``;
+        shard 0's logits.  One device: on the caller's thread.  Sharded:
+        on the shard threads, where autograd mode and the current device
+        are their own, each with ``stream`` (when given) as its current
+        stream."""
+        def step(rank):
+            return self._forward(rank, bufs[self.shard_devices[rank]], T,
+                                 n_pp)
+
+        if self._group is None:
+            return step(0)
+        on = None if stream is None else (lambda r: torch.cuda.stream(stream))
+        return self._group.run(step, on)[0]
 
     def _replay(self, T: int, n_pp: int, packed: np.ndarray) -> torch.Tensor:
         """Run the key's graph on ``packed`` (capturing it at first use):
@@ -609,30 +636,48 @@ class InstanceEngine:
         static inputs with every slot inactive, on the capture stream:
         it writes only the caches' scratch rows and keeps the recurrent
         states, builds the kernels, loads their modules and sets up the
-        stream's library state outside the capture.  Then the capture, in
+        stream's library state (on each thread that will launch into the
+        capture) outside the capture.  Then the capture, in
         ``thread_local`` mode (other threads may use the card meanwhile),
-        into the device's shared pool.  The launches of both are taken
-        off the wrappers' counters; the capture's are added back at every
-        replay.  A failed capture raises: there is no eager fallback."""
+        into the device's shared pool; a sharded engine's shard threads
+        launch into it in their turns, and the caching allocator gives
+        every block requested on the capturing stream from the graph's
+        pool, whichever thread asks.  The launches of both are taken off
+        the wrappers' counters; the capture's (every shard's) are added
+        back at every replay.  A failed capture raises: there is no eager
+        fallback.  It leaves the pool it recorded to marked as recording
+        (the allocator's end of the capture never ran) and the capture
+        stream current, so the device's later captures take a fresh pool
+        and the caller's stream is put back."""
         dev = self.device
         t0 = time.perf_counter()
         with _capturing, _on(dev):
             before = launch_counts()
-            inputs = torch.zeros(self.n_slots * (T + 3 + n_pp),
-                                 dtype=torch.int32, device=dev)
-            stream = _capture_stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                shape = self._forward(0, inputs, T, n_pp).shape
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            warm = launch_counts()
-            logits = torch.empty(shape, dtype=torch.float32, device=dev)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=graph_pool(dev), stream=stream,
-                                  capture_error_mode="thread_local"):
-                logits.copy_(self._forward(0, inputs, T, n_pp))
-            after = launch_counts()
-            add_launch_counts({k: before[k] - n for k, n in after.items()})
+            caller = torch.cuda.current_stream(dev)
+            try:
+                inputs = torch.zeros(self.n_slots * (T + 3 + n_pp),
+                                     dtype=torch.int32, device=dev)
+                bufs = {dev: inputs}
+                stream = _capture_stream(dev)
+                stream.wait_stream(caller)
+                with torch.cuda.stream(stream):
+                    shape = self._step(bufs, T, n_pp, stream).shape
+                caller.wait_stream(stream)
+                warm = launch_counts()
+                logits = torch.empty(shape, dtype=torch.float32, device=dev)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=graph_pool(dev),
+                                      stream=stream,
+                                      capture_error_mode="thread_local"):
+                    logits.copy_(self._step(bufs, T, n_pp, stream))
+            except BaseException:
+                _GRAPH_POOLS.pop(dev.index or 0, None)
+                torch.cuda.set_stream(caller)
+                raise
+            finally:
+                after = launch_counts()
+                add_launch_counts({k: before[k] - n
+                                   for k, n in after.items()})
             torch.cuda.empty_cache()        # the warm-up's cached blocks
         g = _Graph(graph, inputs, logits,
                    {k: n - warm[k] for k, n in after.items()})

@@ -15,7 +15,9 @@ Where the reference runs one program per device inside ``shard_map`` and
 shard in one process (``ShardGroup``): every step runs the unchanged step
 body on each shard's thread with its own params view, cache shard and
 device, and the collective sites call ``all_reduce``, which sums the
-shards' partial outputs in shard order.  The
+shards' partial outputs in shard order.  An engine whose shards share
+one card captures a step's turns once into a CUDA graph
+(``engine.runner``); its replays take no turn.  The
 context is thread-local, so the shard threads of one instance and a
 one-device instance on the caller's thread never see each other's.
 
@@ -29,8 +31,8 @@ from __future__ import annotations
 import concurrent.futures
 import queue
 import threading
-from contextlib import contextmanager
-from typing import Callable, List, Optional
+from contextlib import contextmanager, nullcontext
+from typing import Callable, ContextManager, List, Optional
 
 import torch
 
@@ -82,7 +84,10 @@ class ShardGroup:
     threads, one per shard, that take turns.
 
     ``run(fn)`` calls ``fn(rank)`` on worker ``rank`` inside
-    ``tp_context(self, rank)`` and returns the results in shard order.
+    ``tp_context(self, rank)`` and returns the results in shard order;
+    ``run(fn, context)`` also enters ``context(rank)`` on worker ``rank``
+    around it, in the shard's turn (a capture makes its stream every
+    shard thread's current stream so).
     One shard runs at a time: shard 0 runs up to its first
     ``all_reduce`` and hands the turn to shard 1, and so on; the last
     shard to post its partial sums the partials once for each distinct
@@ -172,10 +177,11 @@ class ShardGroup:
             self._do(rank, *job)
             del job      # hold nothing of the step while idle
 
-    def _do(self, rank: int, fn, fut) -> None:
+    def _do(self, rank: int, fn, context, fut) -> None:
         try:
             self._wait_turn(rank)
-            with tp_context(self, rank):
+            with tp_context(self, rank), \
+                    (context(rank) if context else nullcontext()):
                 result = fn(rank)
             self._pass(rank + 1)         # after the last shard: turn n
             fut.set_result(result)
@@ -183,14 +189,16 @@ class ShardGroup:
             self._abort()
             fut.set_exception(e)
 
-    def run(self, fn: Callable[[int], object]) -> list:
+    def run(self, fn: Callable[[int], object],
+            context: Optional[Callable[[int], ContextManager]] = None) \
+            -> list:
         if self._closed:
             raise RuntimeError("the shard group is closed")
         with self._cond:
             self._turn, self._broken = 0, False
         futs = [concurrent.futures.Future() for _ in range(self.n)]
         for jobs, fut in zip(self._jobs, futs):
-            jobs.put((fn, fut))
+            jobs.put((fn, context, fut))
         concurrent.futures.wait(futs)
         self._parts = [None] * self.n
         self._sums = {}

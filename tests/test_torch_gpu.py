@@ -571,22 +571,34 @@ def test_ep2_moe_routing_on_card_equals_ep1(cuda_device):
 GRAPH_CASES = [("qwen2.5-14b", "bf16"), ("qwen2.5-14b", "fp8"),
                ("qwen2.5-14b", "int8"), ("recurrentgemma-9b", None),
                ("mamba2-780m", None)]
+#: sharded engines whose two shards share the card: TP=2 on a bf16 pool
+#: and on the dense cache, EP=2 on a bf16 pool (sharded pools are bf16)
+SHARD_CASES = [("qwen2.5-14b", "bf16"), ("qwen2.5-14b", None),
+               ("qwen3-moe-30b-a3b", "bf16")]
 
 
-def _graph_pair(arch, prec, device):
+def _cases(cases, width=1):
+    """``cases`` as (arch, prec, width) params; one-device ids as before."""
+    return [pytest.param(a, p, width, id=f"{a}-{p}" + (
+        f"-x{width}" if width > 1 else "")) for a, p in cases]
+
+
+def _graph_pair(arch, prec, device, width=1):
     """An eager and a graphed engine of ``arch``'s smoke config in bf16 on
-    one set of weights, four slots allocated on each."""
+    one set of weights (``width`` shards sharing the card), four slots
+    allocated on each."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.engine import InstanceEngine
     from repro_torch.models.model import init_params
     cfg = get_smoke_config(arch).with_(dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
-    kw = dict(n_slots=4, max_len=128, max_chunk=64)
+    kw = dict(n_slots=4, max_len=128, max_chunk=64, devices=[device] * width)
     kw.update(dict(kv_mode="paged", page_size=8, kv_precision=prec)
               if prec else dict(kv_mode="dense"))
     engines = (InstanceEngine(cfg, params, graphs=False, **kw),
                InstanceEngine(cfg, params, **kw))
+    assert engines[1].graphs and engines[1].tp == width
     for eng in engines:
         for i in range(4):
             eng.alloc(f"r{i}")
@@ -620,17 +632,18 @@ def _cache_bytes(eng):
         else:
             out[path] = tree.contiguous().view(torch.uint8).clone()
 
-    walk(eng.cache, ())
+    walk(eng.caches, ())
     return out
 
 
-@pytest.mark.parametrize("arch,prec", GRAPH_CASES)
-def test_graphed_steps_equal_eager_steps(cuda_device, arch, prec):
+@pytest.mark.parametrize("arch,prec,width",
+                         _cases(GRAPH_CASES) + _cases(SHARD_CASES, 2))
+def test_graphed_steps_equal_eager_steps(cuda_device, arch, prec, width):
     """The same items through an eager and a graphed engine: bit-equal
-    logits and byte-equal caches after every step, the same kernel
-    launches counted, one capture per (T, n_pp) key."""
+    logits and byte-equal caches (every shard's) after every step, the
+    same kernel launches counted, one capture per (T, n_pp) key."""
     from repro_torch.kernels.ops import launch_counts
-    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device)
+    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device, width)
     counts = {}
     for spans in GRAPH_SPANS:
         items = _items(toks, spans)
@@ -652,14 +665,17 @@ def test_graphed_steps_equal_eager_steps(cuda_device, arch, prec):
     assert eager.captures == 0
 
 
-@pytest.mark.parametrize("arch,prec", [GRAPH_CASES[0], GRAPH_CASES[4]])
+@pytest.mark.parametrize(
+    "arch,prec,width",
+    _cases([GRAPH_CASES[0], GRAPH_CASES[4]]) + _cases(SHARD_CASES, 2))
 def test_two_inflight_handles_of_one_key_keep_their_logits(cuda_device,
-                                                           arch, prec):
+                                                           arch, prec,
+                                                           width):
     """Two steps of one key dispatched before either is collected (the
     session's dispatch-ahead) each keep their own logits: those the eager
     engine gives the same steps one at a time."""
     from repro_torch.engine.runner import bucket_of
-    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device)
+    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device, width)
     for spans in GRAPH_SPANS[:3]:
         for eng in (eager, graphed):
             eng.run_batch(_items(toks, spans))
@@ -680,12 +696,15 @@ def test_two_inflight_handles_of_one_key_keep_their_logits(cuda_device,
     assert not np.array_equal(got[0][0], got[1][0])
 
 
-@pytest.mark.parametrize("arch,prec", [GRAPH_CASES[0], GRAPH_CASES[3]])
-def test_dispatch_makes_no_synchronizing_call(cuda_device, arch, prec):
+@pytest.mark.parametrize(
+    "arch,prec,width",
+    _cases([GRAPH_CASES[0], GRAPH_CASES[3]]) + _cases(SHARD_CASES, 2))
+def test_dispatch_makes_no_synchronizing_call(cuda_device, arch, prec,
+                                              width):
     """With every key captured, ``dispatch_batch`` of a prefill, a mixed
     and a decode step raises nothing under the sync debug mode's
-    ``error``, graphed and eager."""
-    _, engines, toks = _graph_pair(arch, prec, cuda_device)
+    ``error``, graphed and eager (on any thread: the mode is global)."""
+    _, engines, toks = _graph_pair(arch, prec, cuda_device, width)
     pairs = [([[(0, 0, 40)], [(1, 0, 40)]]),
              ([[(0, 40, 1), (2, 0, 20)], [(1, 40, 1), (3, 0, 20)]]),
              ([[(s, 60 + i, 1) for s in range(4)] for i in range(2)])]
@@ -700,21 +719,96 @@ def test_dispatch_makes_no_synchronizing_call(cuda_device, arch, prec):
             eng.collect_batch(handle)
 
 
+@pytest.mark.parametrize("arch,prec,width",
+                         _cases(GRAPH_CASES[:1]) + _cases(SHARD_CASES, 2))
 def test_a_failed_capture_raises_and_runs_nothing_eager(cuda_device,
-                                                        monkeypatch):
+                                                        monkeypatch, arch,
+                                                        prec, width):
     """A step that cannot be captured raises out of ``dispatch_batch``;
-    the engine keeps no graph for the key and runs no eager step in its
-    place."""
+    the engine keeps no graph for the key, runs no eager step in its
+    place and counts no launch, and leaves the caller's stream current
+    and a sharded engine's group ready: the same step then captures and
+    equals the eager engine's."""
     from repro_torch.engine import runner
-    _, (_, graphed), toks = _graph_pair("qwen2.5-14b", "bf16", cuda_device)
+    from repro_torch.kernels.ops import launch_counts
+    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device, width)
+    stream = torch.cuda.current_stream()
+    counts = launch_counts()
     real = runner.forward
 
     def unsafe(*a, **kw):
         if torch.cuda.is_current_stream_capturing():
-            torch.cuda.synchronize()         # illegal while capturing
+            # illegal on a capturing stream, from any thread
+            torch.cuda.current_stream().synchronize()
         return real(*a, **kw)
 
     monkeypatch.setattr(runner, "forward", unsafe)
     with pytest.raises(RuntimeError):
         graphed.run_batch(_items(toks, GRAPH_SPANS[0]))
     assert not graphed._graphs and graphed.iterations == 0
+    assert launch_counts() == counts
+    assert torch.cuda.current_stream() == stream
+    if width > 1:
+        assert graphed._group.run(lambda rank: rank) == list(range(width))
+    monkeypatch.undo()
+    items = _items(toks, GRAPH_SPANS[0])
+    got, exp = graphed.run_batch(items), eager.run_batch(items)
+    assert graphed.captures == 1
+    for s in exp:
+        assert np.array_equal(got[s].view(np.uint32), exp[s].view(np.uint32))
+
+
+@pytest.mark.parametrize("arch,prec,width", _cases(SHARD_CASES, 2))
+def test_a_replayed_sharded_step_takes_no_turn(cuda_device, arch, prec,
+                                               width):
+    """A graphed sharded engine submits work to its shard threads only to
+    capture (an eager warm-up and the capture, each on the capture
+    stream): a replayed step runs on the caller's thread alone."""
+    _, (_, graphed), toks = _graph_pair(arch, prec, cuda_device, width)
+    runs = []
+    real = graphed._group.run
+
+    def counted(fn, context=None):
+        runs.append(context is not None)
+        return real(fn, context)
+
+    graphed._group.run = counted
+    for spans in GRAPH_SPANS:
+        graphed.run_batch(_items(toks, spans))
+    assert len(GRAPH_SPANS) > graphed.captures == len(graphed._graphs) >= 3
+    assert runs == [True] * (2 * graphed.captures)
+    assert graphed.iterations == len(GRAPH_SPANS)
+
+
+def test_handoff_across_widths_into_a_graphed_engine_steps_as_eager(
+        cuda_device):
+    """TP=2 -> TP=1 -> TP=2: a request exported by a graphed TP=2 engine,
+    imported by a one-device engine and exported again, then
+    imported by the graphed TP=2 engine and its eager twin: the next step
+    of both slots is bit-equal on the two and captures nothing new (the
+    import writes the caches in place)."""
+    from repro_torch.engine import BatchItem, InstanceEngine
+    cfg, (eager, graphed), toks = _graph_pair("qwen2.5-14b", "bf16",
+                                              cuda_device, 2)
+    one = InstanceEngine(cfg, graphed.params, n_slots=2, max_len=128,
+                         max_chunk=64, kv_mode="paged", page_size=8)
+    for eng in (eager, graphed):
+        eng.run_batch(_items(toks, [(0, 0, 40)]))
+        eng.run_batch(_items(toks, [(0, 40, 1)]))
+    pieces = graphed.export_state(0, upto=41, chunk=16)
+    slot = one.alloc("h")
+    one.import_state(slot, pieces)
+    back = one.export_state(slot, upto=41, chunk=16)
+    captures = graphed.captures
+    outs = []
+    for eng in (eager, graphed):
+        eng.import_state(1, back)
+        outs.append(eng.run_batch([BatchItem(s, toks[0, 41:42], 41, True)
+                                   for s in (0, 1)]))
+    assert graphed.captures == captures
+    for s in (0, 1):
+        assert np.array_equal(outs[0][s].view(np.uint32),
+                              outs[1][s].view(np.uint32)), s
+    ce, cg = _cache_bytes(eager), _cache_bytes(graphed)
+    for key in ce:
+        assert torch.equal(ce[key], cg[key]), key
