@@ -52,7 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.costmodel import BatchCostModel, WorkItem
+from repro_torch.core.costmodel import BatchCostModel
 from repro_torch.core.kv_transfer import plan_background_stream
 from repro_torch.core.local_scheduler import DecodeWork, LocalScheduler, PrefillWork
 from repro_torch.core.metrics_util import pctl
@@ -61,6 +61,7 @@ from repro_torch.core.predictor import ExecutionPredictor, QueuedWork
 from repro_torch.core.request import (
     MicroRequest, Request, RequestState, SLOClass,
 )
+from repro_torch.utils import trace
 
 # Process-wide default for ``SessionConfig.overlap=None`` — the test
 # harness flips this (pytest --overlap) to rerun every existing suite
@@ -187,8 +188,6 @@ class InstanceState:
         self.segments: List[List[Optional[float]]] = [[spawned_at, None]]
         # accounting
         self.busy_time = 0.0
-        self.flops_done = 0.0
-        self.bytes_done = 0.0
         self.kv_tokens_resident = 0
 
     @property
@@ -251,6 +250,9 @@ class ExecResult:
     # (overlapped dispatch): busy-time accounting uses this so a
     # two-deep pipeline does not double-count the queued interval.
     device_time: Optional[float] = None
+    # A traced engine step's record (``repro_torch.utils.trace``), which
+    # ``_on_batch_done`` closes with the plan's side.
+    step: Optional[dict] = None
 
 
 class Backend:
@@ -542,7 +544,6 @@ class SessionMetrics:
     req_attained: float           # fraction of requests with max TBT <= SLO
     scheduling_overheads: np.ndarray
     per_instance_busy: List[float]
-    per_instance_mfu: List[float]
     per_instance_hbm: List[float]
     transfer_exposed_total: float
     transfer_bytes_total: float
@@ -786,6 +787,8 @@ class ServeSession:
     def _wall(self) -> float:
         if self._t0 is None:
             self._t0 = _time.monotonic()
+            if trace.on:
+                trace.set_zero(_time.time_ns())
         return _time.monotonic() - self._t0
 
     def _advance(self, t: float) -> None:
@@ -1345,7 +1348,10 @@ class ServeSession:
             self._reject(r, shed_reason, arrival=arrival)
             return
         self._to(r, RequestState.ADMITTED)
+        sp = trace.on and trace.begin("policy.place", r.rid)
         placements = self.policy.place(r, self, self.now)
+        if sp:
+            trace.end(sp)
         if hasattr(self.policy, "last_overhead"):
             self.sched_overheads.append(self.policy.last_overhead)
         # reserve backend resources; on exhaustion, shed the request
@@ -1447,6 +1453,7 @@ class ServeSession:
         # needs the sampled token; its next prefill chunk needs pos to
         # advance) — this is what keeps pipelined token streams
         # identical to the synchronous ones
+        sp = trace.on and trace.begin("session.compose", None, inst.iid)
         flying = inst.in_flight
         pf = [m for m in inst.prefill_q
               if m.ready <= self.now and m not in flying]
@@ -1482,6 +1489,8 @@ class ServeSession:
             free_frames=self.backend.free_frames(inst.iid),
             frames_of=lambda rid: self._page_frames(inst.iid,
                                                     slos.get(rid)))
+        if sp:
+            trace.end(sp)
         return plan, pf, dc
 
     def _seniority(self, m: MicroState):
@@ -1632,10 +1641,6 @@ class ServeSession:
             self._to(m.mr.parent,
                      RequestState.RUNNING_BETA if m.mr.role == "beta"
                      else RequestState.RUNNING_ALPHA)
-        items = ([WorkItem("prefill", g, m.pos) for m, g in grants] +
-                 [WorkItem("decode", 1, m.pos) for m in decs])
-        inst.flops_done += self.cost.flops(items)
-        inst.bytes_done += self.cost.bytes_moved(items)
         inst.inflight.append(h)
         if self._overlap:
             h.overlapped = True
@@ -1675,6 +1680,14 @@ class ServeSession:
         inst.busy_time += (res.device_time if res.device_time is not None
                            else res.latency)
         inst.scheduler.record(plan, res.latency)
+        if res.step is not None:
+            # a traced engine step: the plan's side of its record
+            res.step.update(t=h.issued_at,
+                            prefill=sum(g for _, g in grants),
+                            decode=len(decs),
+                            predicted_s=getattr(plan, "predicted_latency",
+                                                None))
+            trace.add_step(res.step)
         if self._dec:
             dev = (res.device_time if res.device_time is not None
                    else res.latency)
@@ -2056,10 +2069,9 @@ class ServeSession:
             cr.ttft_p50 = pctl(tf, 50)
             cr.ttft_p99 = pctl(tf, 99)
             cr.tbt_p99 = pctl(tb, 99)
-        mfu, hbm, busy = [], [], []
+        hbm, busy = [], []
         inst_seconds = 0.0
         for inst in self.instances:
-            mfu.append(inst.flops_done / max(duration, 1e-9) / self.cost.hw.peak_flops)
             hbm.append(min(1.0, (self.cost.weight_bytes +
                                  inst.kv_tokens_resident *
                                  self.cost.kv_bytes_per_tok_at(
@@ -2078,7 +2090,6 @@ class ServeSession:
             req_attained=req_ok / max(1, completed),
             scheduling_overheads=np.asarray(self.sched_overheads),
             per_instance_busy=busy,
-            per_instance_mfu=mfu,
             per_instance_hbm=hbm,
             transfer_exposed_total=self.transfer_exposed,
             transfer_bytes_total=self.transfer_bytes,

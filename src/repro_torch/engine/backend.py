@@ -38,6 +38,7 @@ from repro_torch.engine.runner import (
 from repro_torch.engine.sampling import sample
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import supports_paged_kv
+from repro_torch.utils import trace
 from repro_torch.utils.device import DEVICE_COUNT_ENV, visible_devices
 
 #: One NVIDIA H100 SXM 80 GB: NVIDIA data-sheet peaks (dense bf16
@@ -267,7 +268,8 @@ class EngineBackend(Backend):
                 page_size=self.page_size or 8, n_pages=self.n_pages,
                 max_chunk=self.max_chunk, prefix_cache=self.prefix_cache,
                 kv_precision=self._precision_for(iid).name,
-                devices=self._instance_devices(iid), graphs=self.graphs)
+                devices=self._instance_devices(iid), graphs=self.graphs,
+                iid=iid)
             # the engine owns the auto-mode rule; the backend's page
             # bookkeeping (register/admission/total_pages) must agree
             assert eng.paged == self.paged, \
@@ -321,7 +323,9 @@ class EngineBackend(Backend):
     def gauges(self, iid: int) -> Dict[str, float]:
         """Engine-side occupancy sample for /metrics: slot and KV-page
         utilisation, per-precision page occupancy, quantized-handoff
-        savings, plus prefix-cache size, per instance."""
+        savings, prefix-cache size, and the engine's step counters (rows
+        computed and real, graph replays, captures and their seconds),
+        per instance."""
         eng = self.engines.get(iid)
         if eng is None:
             return {}
@@ -330,6 +334,11 @@ class EngineBackend(Backend):
             "slots_total": float(self.n_slots),
             "kv_bytes_moved": float(self.kv_bytes_moved),
             "devices": float(eng.tp),
+            "rows_computed": float(eng.rows_computed),
+            "rows_real": float(eng.rows_real),
+            "replays": float(eng.replays),
+            "captures": float(eng.captures),
+            "capture_seconds": float(eng.capture_seconds),
         }
         if self.paged:
             out["kv_pages_free"] = float(eng.free_pages)
@@ -487,16 +496,27 @@ class EngineBackend(Backend):
         return token.step is None or token.step.ready()
 
     def collect(self, token) -> ExecResult:
-        """Block on the token's step, sample, and return the result."""
+        """Block on the token's step, sample, and return the result.  A
+        traced step's result carries its device time and its record."""
+        rec = token.step.record if token.step is not None else None
+        sp = rec is not None and trace.begin("engine.collect", rec["step"],
+                                             token.eng.iid)
         out = token.eng.collect_batch(token.step)
         latency = time.monotonic() - token.t0
+        sa = sp and trace.begin("engine.sample", rec["step"], token.eng.iid)
         tokens: Dict[str, int] = {}
         for m, slot in token.sampled:
             if slot in out:
                 tok = sample(out[slot])
                 self.records[m.mr.parent.rid].generated.append(tok)
                 tokens[m.rid] = tok
-        return ExecResult(latency=latency, tokens=tokens, deferred=False)
+        if not sp:
+            return ExecResult(latency=latency, tokens=tokens, deferred=False)
+        trace.end(sa)
+        trace.end(sp)
+        rec["host_s"] = latency
+        return ExecResult(latency=latency, tokens=tokens, deferred=False,
+                          device_time=rec["device_s"], step=rec)
 
     def execute(self, inst: InstanceState,
                 grants: Sequence[Tuple[MicroState, int]],
@@ -527,6 +547,7 @@ class EngineBackend(Backend):
         beta (paper §4.3), on actual page tensors.  When the session
         claimed a cached prefix on the destination (the beta's block
         table already covers it), only the missed tail ships."""
+        sp = trace.on and trace.begin("handoff.sync", dst.rid)
         si, ss = self._slots[src.rid]
         di, ds = self._slots[dst.rid]
         src_eng = self.engines[si]
@@ -544,6 +565,8 @@ class EngineBackend(Backend):
         self.kv_bytes_moved += nbytes
         self._credit_saved(di, self._transfer_saved(src_eng, src.pos,
                                                     start=start))
+        if sp:
+            trace.end(sp, bytes=nbytes, src_iid=si, dst_iid=di)
         return float(nbytes)
 
     def handoff_stream(self, src: MicroState,
@@ -568,10 +591,17 @@ class EngineBackend(Backend):
                          dst_iid=di)
 
     def stream_pump(self, stream: _KVStream) -> Optional[float]:
+        sp = trace.on and trace.begin("handoff.pump", stream.dst.rid,
+                                      stream.dst_iid)
+        nb = None
         try:
-            return stream.pump()
+            nb = stream.pump()
         except OutOfPages as e:
             raise HandoffStreamError(str(e)) from e
+        finally:
+            if sp:
+                trace.end(sp, bytes=nb or 0.0)
+        return nb
 
     def stream_abort(self, stream: _KVStream) -> None:
         stream.abort()

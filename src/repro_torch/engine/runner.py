@@ -75,6 +75,7 @@ from repro_torch.models.model import (
     forward, init_cache, init_paged_cache, supports_paged_kv,
 )
 from repro_torch.models.tp import ShardGroup
+from repro_torch.utils import trace
 from repro_torch.utils.device import as_device, torch_dtype
 from repro_torch.utils.sharding import (
     shard_params, tp_cache_specs, tp_param_specs,
@@ -120,10 +121,15 @@ class StepHandle:
     host.  ``logits`` is the step's own tensor (a graphed step's is a
     clone of the graph's static output), so two handles never alias.
     ``ready()`` probes completion without blocking through a CUDA event
-    recorded after the step; a CPU step is always ready."""
+    recorded after the step; a CPU step is always ready.  With tracing on
+    (``utils.trace``), ``record`` is the step's record and ``start`` a
+    timing event recorded just before the inputs' copy, which with
+    ``event`` times the step on the device."""
     items: Sequence[BatchItem]
     logits: torch.Tensor
     event: Optional[object] = None
+    record: Optional[dict] = None
+    start: Optional[object] = None
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -222,6 +228,12 @@ class InstanceEngine:
     ``graphs`` (on by default) captures the step once per ``(T, n_pp)``
     key where ``can_graph(self.shard_devices)``: every shard on one card.
     ``self.graphs`` says whether this engine does.
+
+    ``iid`` names the instance in the engine's trace spans and step
+    records (``utils.trace``).  Counters, always kept: ``iterations``
+    (steps), ``rows_computed`` (``n_slots`` x the T bucket, summed over
+    the steps), ``rows_real`` (the steps' tokens), ``replays`` (graph
+    replays), ``captures`` and ``capture_seconds``.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -231,7 +243,8 @@ class InstanceEngine:
                  max_chunk: int = DEFAULT_MAX_CHUNK,
                  prefix_cache: bool = False,
                  kv_precision: str = "bf16",
-                 devices: Optional[Sequence] = None, graphs: bool = True):
+                 devices: Optional[Sequence] = None, graphs: bool = True,
+                 iid: Optional[int] = None):
         if kv_mode not in ("auto", "paged", "dense"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         if kv_mode == "paged" and not supports_paged_kv(cfg):
@@ -241,6 +254,7 @@ class InstanceEngine:
                              "window_override requires kv_mode='dense'")
         self.cfg = cfg
         self.params = params
+        self.iid = iid
         self.n_slots = n_slots
         self.max_len = max_len
         self.window_override = window_override
@@ -305,11 +319,12 @@ class InstanceEngine:
         self._graphs: Dict[Tuple[int, int], _Graph] = {}
         self.captures = 0
         self.capture_seconds = 0.0
+        self.replays = 0
         self.free_slots = list(range(n_slots))
         self.slot_owner: Dict[int, str] = {}
-        # counters for tests/benchmarks
         self.iterations = 0
-        self.tokens_processed = 0
+        self.rows_computed = 0
+        self.rows_real = 0
         self.prefix_hit_tokens = 0
 
     @property
@@ -571,6 +586,9 @@ class InstanceEngine:
         batch."""
         if not items:
             return None
+        sp = trace.on and trace.begin("engine.dispatch", trace.new_step(),
+                                      self.iid)
+        pk = sp and trace.begin("engine.pack", sp[4], self.iid)
         T = bucket_of(max(len(it.tokens) for it in items), self.buckets)
         n_pp = 0
         if self.paged:
@@ -587,19 +605,46 @@ class InstanceEngine:
             n_pp = bucket_of(max(1, self.allocator.max_table_len),
                              self.page_buckets)
         packed = self._pack(items, T, n_pp)
+        if pk:
+            trace.end(pk)
+        captured = bool(sp) and self.graphs and (T, n_pp) not in self._graphs
         if self.graphs:
-            logits = self._replay(T, n_pp, packed)
+            logits, start, launch_ns = self._replay(T, n_pp, packed, sp)
         else:
-            logits = self._step(
-                self._stage(packed, dict.fromkeys(self.shard_devices)),
-                T, n_pp)
+            logits, start, launch_ns = self._eager(T, n_pp, packed, sp)
         event = None
         if self.device.type == "cuda":
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=bool(sp))
             event.record(torch.cuda.current_stream(self.device))
+        rows = sum(len(it.tokens) for it in items)
         self.iterations += 1
-        self.tokens_processed += int(sum(len(it.tokens) for it in items))
-        return StepHandle(items=items, logits=logits, event=event)
+        self.rows_computed += self.n_slots * T
+        self.rows_real += rows
+        handle = StepHandle(items=items, logits=logits, event=event)
+        if sp:
+            handle.start = start
+            handle.record = {"step": sp[4], "iid": self.iid, "T": T,
+                             "n_pp": n_pp, "n_slots": self.n_slots,
+                             "rows": rows, "captured": captured,
+                             "device_s": launch_ns * 1e-9}
+            trace.end(sp)
+        return handle
+
+    def _eager(self, T: int, n_pp: int, packed: np.ndarray, sp=False):
+        """The eager step on ``packed``: (logits, the start event or None,
+        the ``engine.launch`` span's nanoseconds or False); ``sp``, the
+        open ``engine.dispatch`` span, or False with tracing off."""
+        st = sp and trace.begin("engine.stage", sp[4], self.iid)
+        start = None
+        if st and self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(self.device))
+        bufs = self._stage(packed, dict.fromkeys(self.shard_devices))
+        if st:
+            trace.end(st)
+        la = sp and trace.begin("engine.launch", sp[4], self.iid)
+        logits = self._step(bufs, T, n_pp)
+        return logits, start, la and trace.end(la)
 
     def _step(self, bufs: Dict[torch.device, torch.Tensor], T: int,
               n_pp: int, stream=None) -> torch.Tensor:
@@ -617,18 +662,28 @@ class InstanceEngine:
         on = None if stream is None else (lambda r: torch.cuda.stream(stream))
         return self._group.run(step, on)[0]
 
-    def _replay(self, T: int, n_pp: int, packed: np.ndarray) -> torch.Tensor:
+    def _replay(self, T: int, n_pp: int, packed: np.ndarray, sp=False):
         """Run the key's graph on ``packed`` (capturing it at first use):
         copy the inputs into its static buffer, replay, and clone the
-        logits out, all on the current stream."""
+        logits out, all on the current stream.  Returns what ``_eager``
+        returns."""
         g = self._graphs.get((T, n_pp)) or self._capture(T, n_pp)
+        st = sp and trace.begin("engine.stage", sp[4], self.iid)
         pinned = torch.from_numpy(packed).pin_memory()
+        start = None
         with _on(self.device):
+            if st:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
             g.inputs.copy_(pinned, non_blocking=True)
+            if st:
+                trace.end(st)
+            la = sp and trace.begin("engine.launch", sp[4], self.iid)
             g.graph.replay()
             logits = g.logits.clone()
         add_launch_counts(g.launches)
-        return logits
+        self.replays += 1
+        return logits, start, la and trace.end(la)
 
     def _capture(self, T: int, n_pp: int) -> _Graph:
         """Capture the step of key (T, n_pp) into a CUDA graph, as
@@ -650,6 +705,7 @@ class InstanceEngine:
         stream current, so the device's later captures take a fresh pool
         and the caller's stream is put back."""
         dev = self.device
+        cp = trace.on and trace.begin("engine.capture", None, self.iid)
         t0 = time.perf_counter()
         with _capturing, _on(dev):
             before = launch_counts()
@@ -684,15 +740,30 @@ class InstanceEngine:
         self._graphs[(T, n_pp)] = g
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
+        if cp:
+            trace.end(cp, T=T, n_pp=n_pp)
         return g
 
     def collect_batch(self, handle: Optional[StepHandle]) \
             -> Dict[int, np.ndarray]:
         """Block on an in-flight step and return {slot: last-token
-        logits} for its want_logits items."""
+        logits} for its want_logits items.  A traced step waits on its
+        event first, apart from the copy, and takes its device time."""
         if handle is None:
             return {}
+        rec = handle.record
+        if rec is not None and handle.event is not None:
+            w = trace.begin("engine.wait", rec["step"], self.iid)
+            handle.event.synchronize()
+            trace.end(w)
+            if handle.start is not None:
+                rec["device_s"] = handle.start.elapsed_time(handle.event) \
+                    * 1e-3
+        d2h = rec is not None and trace.begin("engine.d2h", rec["step"],
+                                              self.iid)
         logits = handle.logits.cpu().numpy()
+        if d2h:
+            trace.end(d2h)
         return {it.slot: logits[it.slot]
                 for it in handle.items if it.want_logits}
 
@@ -759,7 +830,8 @@ class InstanceEngine:
                 n_valid=torch.full((B,), total, dtype=torch.long, device=dev),
                 last_only=True, window_override=self.window_override, **kw)
         self.iterations += 1
-        self.tokens_processed += total
+        self.rows_computed += B * total
+        self.rows_real += total
         return logits[slot, 0].cpu().numpy()
 
     # ---------------- micro-request state handoff ----------------

@@ -126,10 +126,14 @@ def report(m: SessionMetrics, label: str) -> None:
 
 def _attach_recorder(session: ServeSession, args):
     """Flight recorder for batch runs: on when any of --decision-log /
-    --perfetto / --attribution asks for its output."""
+    --perfetto / --attribution asks for its output; --perfetto also
+    switches the engine's tracing on, for its host lanes."""
     if not (args.decision_log or args.perfetto or args.attribution):
         return None
     from repro_torch.serving.flightrecorder import FlightRecorder
+    if args.perfetto:
+        from repro_torch.utils import trace
+        trace.enable()
     rec = FlightRecorder(capacity=args.recorder_capacity,
                          sink=args.decision_log)
     rec.attach(session)
@@ -147,7 +151,9 @@ def _finish_recorder(rec, args) -> None:
               f"the ring)")
     if args.perfetto:
         from repro_torch.serving.flightrecorder import export_chrome_trace
-        n = export_chrome_trace(events, args.perfetto)
+        from repro_torch.utils import trace
+        trace.disable()
+        n = export_chrome_trace(events, args.perfetto, spans=trace.take())
         print(f"perfetto trace -> {args.perfetto} ({n} trace events)")
     if args.attribution:
         from repro_torch.serving.attribution import analyze
@@ -311,7 +317,9 @@ def main(argv=None):
                          "with repro_torch.sim.replay)")
     ap.add_argument("--perfetto", default=None,
                     help="export a Chrome/Perfetto trace JSON of the run "
-                         "here (batch runs; for --http use /debug/trace)")
+                         "here, the engine's spans as one host lane an "
+                         "instance (batch runs; for --http use "
+                         "/debug/trace)")
     ap.add_argument("--attribution", action="store_true",
                     help="print the per-class SLO-miss attribution "
                          "summary after a batch run")

@@ -18,7 +18,8 @@ provides:
   assert recorded logs stay well-formed without a jsonschema dependency;
 * a Perfetto / ``chrome://tracing`` exporter (``to_chrome_trace``)
   rendering per-instance device busy lanes, KV-stream transfer lanes,
-  and per-request spans from the same events;
+  and per-request spans from the same events, and with the engine's
+  trace (``repro_torch.utils.trace``) one host lane per instance;
 * ``token_timelines`` — the per-request token-emission times a replay
   (:mod:`repro_torch.sim.replay`) must reproduce bit-identically.
 
@@ -290,13 +291,19 @@ def _us(t: float) -> float:
     return t * 1e6
 
 
-def to_chrome_trace(events: Iterable[dict]) -> dict:
+def to_chrome_trace(events: Iterable[dict],
+                    spans: Optional[dict] = None) -> dict:
     """Render a decision log as a Chrome-trace JSON object (loads in
     Perfetto and ``chrome://tracing``): per-instance device busy lanes
-    from ``exec`` events, KV-stream transfer lanes from
+    from ``exec`` events (the steps' device time where the engine was
+    traced, else their host latency), KV-stream transfer lanes from
     ``handoff``/``handoff_chunk``, async per-request spans from
     lifecycle transitions, and instant markers for preemption, eviction
-    and elastic scale events."""
+    and elastic scale events.  ``spans``: what
+    ``repro_torch.utils.trace.take()`` handed over for the same run,
+    drawn as one host lane per instance (``host-<iid>``; spans of no
+    instance on ``host``), mapped onto the session clock by its
+    ``zero_ns``."""
     evs = list(events)
     pid = 1
     out: List[dict] = [{"name": "process_name", "ph": "M", "pid": pid,
@@ -326,6 +333,18 @@ def to_chrome_trace(events: Iterable[dict]) -> dict:
                 "ph": "i", "s": "g", "pid": pid, "tid": "events",
                 "ts": ts(e["t"]), "args": d,
             })
+
+    # engine host lanes: the trace's spans on the session clock
+    if spans and spans.get("zero_ns") is not None:
+        zero = spans["zero_ns"]
+        for _, name, a, b, parent, key, iid, attrs in spans["spans"]:
+            args = {"key": key, "parent": parent}
+            args.update(attrs or {})
+            out.append({
+                "name": name, "ph": "X", "pid": pid,
+                "tid": "host" if iid is None else f"host-{iid}",
+                "ts": ts((a - zero) * 1e-9), "dur": (b - a) * 1e-3,
+                "args": args})
 
     # KV-stream lanes: handoff emission -> last chunk (or +exposed)
     chunks: Dict[str, List[float]] = {}
@@ -365,8 +384,9 @@ def to_chrome_trace(events: Iterable[dict]) -> dict:
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 
 
-def export_chrome_trace(events: Iterable[dict], path: str) -> int:
-    trace = to_chrome_trace(events)
+def export_chrome_trace(events: Iterable[dict], path: str,
+                        spans: Optional[dict] = None) -> int:
+    trace = to_chrome_trace(events, spans)
     with open(path, "w") as f:
         json.dump(trace, f)
     return len(trace["traceEvents"])

@@ -24,6 +24,14 @@ bounded deque) for tests and ad-hoc inspection.  Pool-level decisions
 that belong to no single request (prefix-cache evictions, elastic
 scale events, migrations, controller actions) land on
 ``tracer.pool_events``, another bounded ring.
+
+Below the session, the engine level is ``engine`` (the module
+``repro_torch.utils.trace``, which imports only the standard library so
+that the engine needs nothing of this package): one process-wide switch,
+spans at the dispatch, pack, stage, launch, capture, collect, wait,
+copy and sample of every engine step and at the session's compose,
+placement and handoffs, and one record an engine step, stamped on the
+profiler's clock, with the session clock's zero on that clock.
 """
 from __future__ import annotations
 
@@ -32,7 +40,9 @@ import json
 import threading
 from typing import Callable, Dict, List, Optional, Union
 
-__all__ = ["Tracer"]
+from repro_torch.utils import trace as engine
+
+__all__ = ["Tracer", "engine"]
 
 _TERMINAL = ("done", "cancelled", "rejected")
 

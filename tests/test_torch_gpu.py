@@ -812,3 +812,94 @@ def test_handoff_across_widths_into_a_graphed_engine_steps_as_eager(
     ce, cg = _cache_bytes(eager), _cache_bytes(graphed)
     for key in ce:
         assert torch.equal(ce[key], cg[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the engine's trace: a step's device time against the profiler's
+# ---------------------------------------------------------------------------
+def test_traced_device_time_spans_the_steps_work_on_the_card(cuda_device):
+    """Qwen2.5-14B at every width and 16 of its 48 layers on a bf16 pool,
+    graphed: the same 50 decode steps of 8 rows run traced
+    (``repro_torch.utils.trace``), once alone and once under the profiler.
+    The steps' ``device_s`` (CUDA events just before the inputs' copy and
+    after the logits' clone) time the stream's occupancy, so without the
+    profiler they read at least the device's busy time under it (the
+    operations' union) and at most a fifth over it: the graph's gaps
+    between kernels, and no host launch stall, which the profiler makes
+    several times longer and which would read beyond that.  Under the
+    profiler, ``device_s`` sums to within 5% of the steps' extents there
+    (first device operation's start to last one's end, of the operations
+    that start between the step's ``engine.dispatch`` span and the next
+    step's: spans and profiler on one clock; the logits' copy to the host,
+    after the end event, left out)."""
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.engine import InstanceEngine
+    from repro_torch.models.model import init_params
+    from repro_torch.utils import trace
+    cfg = get_config("qwen2.5-14b").with_(n_layers=16)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    eng = InstanceEngine(cfg, params, n_slots=8, kv_mode="paged",
+                         page_size=8, n_pages=8 * 64, max_chunk=64)
+    assert eng.graphs
+    for s in range(8):
+        eng.alloc(f"r{s}")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 400)).astype(np.int32)
+    for p in range(0, 256, 64):
+        eng.run_batch(_items(toks, [(s, p, 64) for s in range(8)]))
+    decode = [_items(toks, [(s, 256 + i, 1) for s in range(8)])
+              for i in range(53)]
+    for items in decode[:3]:          # capture and warm the decode key
+        eng.run_batch(items)
+    torch.cuda.synchronize()
+
+    def steps():
+        records = []
+        for items in decode[3:]:
+            handle = eng.dispatch_batch(items)
+            eng.collect_batch(handle)
+            records.append(handle.record)
+        torch.cuda.synchronize()
+        return records
+
+    trace.enable()
+    try:
+        alone = steps()
+        trace.reset()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            records = steps()
+        spans = trace.take()["spans"]
+    finally:
+        trace.disable()
+        trace.reset()
+    for rs in (alone, records):
+        assert len(rs) == 50 and not any(r["captured"] for r in rs)
+    ops = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                 for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == DeviceType.CUDA
+                 and "DtoH" not in ev.name())
+    starts = sorted(sp[2] for sp in spans if sp[1] == "engine.dispatch")
+    assert len(starts) == 50
+    bounds = starts[1:] + [ops[-1][0] + 1]
+    extent = 0
+    for a, b in zip(starts, bounds):
+        mine = [op for op in ops if a <= op[0] < b]
+        assert mine, "a step with no device operation"
+        extent += max(e for _, e in mine) - mine[0][0]
+    busy, end = 0, None
+    for a, b in ops:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    device = sum(r["device_s"] for r in records)
+    assert device == pytest.approx(extent * 1e-9, rel=0.05), (device, extent)
+    ratio = sum(r["device_s"] for r in alone) / (busy * 1e-9)
+    print(f"device_s alone / busy under the profiler {ratio:.4f}; under "
+          f"the profiler / its extents {device / (extent * 1e-9):.4f}")
+    assert 1.0 <= ratio <= 1.2, ratio

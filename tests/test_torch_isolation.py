@@ -2,9 +2,13 @@
 torch examples, ``examples/*_torch.py``, nor ``chip_smoke.py``) imports
 JAX, ``ml_dtypes`` or the JAX package, and the framework-free modules and
 definitions it copied from ``src/repro/`` still equal their originals once
-the import prefix is rewritten, so scheduler decisions stay the same
-function of the same inputs in both packages."""
+the import prefix is rewritten, but for the lines ``PORT_DIFFS`` lists
+(the engine-level trace and counting that nothing in the port read), so
+scheduler decisions stay the same function of the same inputs in both
+packages."""
 import ast
+import difflib
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -36,6 +40,120 @@ COPIES = [
     "serving/driver.py", "serving/flightrecorder.py",
     "serving/attribution.py", "serving/loadgen.py", "launch/__init__.py",
 ]
+
+#: the port's changes to copied modules, as the lines a line diff against
+#: the original (import prefix rewritten) takes out (``-``) and puts in
+#: (``+``), hunk by hunk in order, one reason each: the engine-level trace
+#: (``repro_torch.utils.trace``) and the counting that nothing in the port
+#: read; every other line equals the original
+PORT_DIFFS = {
+    "core/session.py": [
+        ("WorkItem was used only by the removed flops_done / bytes_done", """
+            -from repro_torch.core.costmodel import BatchCostModel, WorkItem
+            +from repro_torch.core.costmodel import BatchCostModel"""),
+        ("the engine-level trace", """
+            +from repro_torch.utils import trace"""),
+        ("flops_done / bytes_done: read only by per_instance_mfu", """
+            -        self.flops_done = 0.0
+            -        self.bytes_done = 0.0"""),
+        ("a traced step's record, closed in _on_batch_done", """
+            +    # A traced engine step's record (``repro_torch.utils.trace``), which
+            +    # ``_on_batch_done`` closes with the plan's side.
+            +    step: Optional[dict] = None"""),
+        ("per_instance_mfu: read by nothing in the port", """
+            -    per_instance_mfu: List[float]"""),
+        ("the session clock's zero on the trace's clock", """
+            +            if trace.on:
+            +                trace.set_zero(_time.time_ns())"""),
+        ("the policy.place span", """
+            +        sp = trace.on and trace.begin("policy.place", r.rid)"""),
+        ("the policy.place span", """
+            +        if sp:
+            +            trace.end(sp)"""),
+        ("the session.compose span", """
+            +        sp = trace.on and trace.begin("session.compose", None, inst.iid)"""),
+        ("the session.compose span", """
+            +        if sp:
+            +            trace.end(sp)"""),
+        ("flops_done / bytes_done and their two cost-model calls", """
+            -        items = ([WorkItem("prefill", g, m.pos) for m, g in grants] +
+            -                 [WorkItem("decode", 1, m.pos) for m in decs])
+            -        inst.flops_done += self.cost.flops(items)
+            -        inst.bytes_done += self.cost.bytes_moved(items)"""),
+        ("the step record closed with the plan's side", """
+            +        if res.step is not None:
+            +            # a traced engine step: the plan's side of its record
+            +            res.step.update(t=h.issued_at,
+            +                            prefill=sum(g for _, g in grants),
+            +                            decode=len(decs),
+            +                            predicted_s=getattr(plan, "predicted_latency",
+            +                                                None))
+            +            trace.add_step(res.step)"""),
+        ("per_instance_mfu", """
+            -        mfu, hbm, busy = [], [], []
+            +        hbm, busy = [], []"""),
+        ("per_instance_mfu", """
+            -            mfu.append(inst.flops_done / max(duration, 1e-9) / self.cost.hw.peak_flops)"""),
+        ("per_instance_mfu", """
+            -            per_instance_mfu=mfu,"""),
+    ],
+    "serving/tracing.py": [
+        ("the engine level documented", """
+            +
+            +Below the session, the engine level is ``engine`` (the module
+            +``repro_torch.utils.trace``, which imports only the standard library so
+            +that the engine needs nothing of this package): one process-wide switch,
+            +spans at the dispatch, pack, stage, launch, capture, collect, wait,
+            +copy and sample of every engine step and at the session's compose,
+            +placement and handoffs, and one record an engine step, stamped on the
+            +profiler's clock, with the session clock's zero on that clock."""),
+        ("the engine level re-exported", """
+            -__all__ = ["Tracer"]
+            +from repro_torch.utils import trace as engine
+            +
+            +__all__ = ["Tracer", "engine"]"""),
+    ],
+    "serving/flightrecorder.py": [
+        ("host lanes documented", """
+            -  and per-request spans from the same events;
+            +  and per-request spans from the same events, and with the engine's
+            +  trace (``repro_torch.utils.trace``) one host lane per instance;"""),
+        ("the trace's spans passed in", """
+            -def to_chrome_trace(events: Iterable[dict]) -> dict:
+            +def to_chrome_trace(events: Iterable[dict],
+            +                    spans: Optional[dict] = None) -> dict:"""),
+        ("device lanes documented", """
+            -    from ``exec`` events, KV-stream transfer lanes from
+            +    from ``exec`` events (the steps' device time where the engine was
+            +    traced, else their host latency), KV-stream transfer lanes from"""),
+        ("host lanes documented", """
+            -    and elastic scale events.\"\"\"
+            +    and elastic scale events.  ``spans``: what
+            +    ``repro_torch.utils.trace.take()`` handed over for the same run,
+            +    drawn as one host lane per instance (``host-<iid>``; spans of no
+            +    instance on ``host``), mapped onto the session clock by its
+            +    ``zero_ns``.\"\"\""""),
+        ("one host lane an instance", """
+            +
+            +    # engine host lanes: the trace's spans on the session clock
+            +    if spans and spans.get("zero_ns") is not None:
+            +        zero = spans["zero_ns"]
+            +        for _, name, a, b, parent, key, iid, attrs in spans["spans"]:
+            +            args = {"key": key, "parent": parent}
+            +            args.update(attrs or {})
+            +            out.append({
+            +                "name": name, "ph": "X", "pid": pid,
+            +                "tid": "host" if iid is None else f"host-{iid}",
+            +                "ts": ts((a - zero) * 1e-9), "dur": (b - a) * 1e-3,
+            +                "args": args})"""),
+        ("the trace's spans passed on", """
+            -def export_chrome_trace(events: Iterable[dict], path: str) -> int:
+            -    trace = to_chrome_trace(events)
+            +def export_chrome_trace(events: Iterable[dict], path: str,
+            +                        spans: Optional[dict] = None) -> int:
+            +    trace = to_chrome_trace(events, spans)"""),
+    ],
+}
 
 #: top-level definitions of ``serving/http.py`` the port changes: the
 #: engine-backend device field and the engine branch of ``make_session``
@@ -99,8 +217,27 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _diff(rel: str):
+    """The hunks of a line diff of the port's ``rel`` against the
+    original's, import prefix rewritten: the lines each takes out
+    (``-``) and puts in (``+``)."""
+    ref = (REF / rel).read_text().replace("repro.", "repro_torch.")
+    ref, port = ref.splitlines(), (PORT / rel).read_text().splitlines()
+    ops = difflib.SequenceMatcher(None, ref, port, autojunk=False)
+    return [["-" + line for line in ref[i1:i2]]
+            + ["+" + line for line in port[j1:j2]]
+            for tag, i1, i2, j1, j2 in ops.get_opcodes() if tag != "equal"]
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_equals_reference(rel):
+    if rel in PORT_DIFFS:
+        want = [textwrap.dedent(lines).strip("\n").splitlines()
+                for _, lines in PORT_DIFFS[rel]]
+        assert _diff(rel) == want, (
+            f"src/repro_torch/{rel} differs from src/repro/{rel} in more "
+            f"or other lines than PORT_DIFFS lists")
+        return
     want = (REF / rel).read_text().replace("repro.", "repro_torch.")
     assert (PORT / rel).read_text() == want, (
         f"src/repro_torch/{rel} drifted from src/repro/{rel}: copy it "
