@@ -1986,8 +1986,8 @@ def launches_by_heads(counts: dict):
         by_graph[id(g)] = dict(captured)
         return g
 
-    def counted_replay(self, T, n_pp, packed):
-        out = replay(self, T, n_pp, packed)
+    def counted_replay(self, T, n_pp, packed, sp=False):
+        out = replay(self, T, n_pp, packed, sp)
         for key, n in by_graph[id(self._graphs[(T, n_pp)])].items():
             add(counts, key, n)
         return out

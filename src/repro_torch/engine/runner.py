@@ -5,7 +5,17 @@ One ``InstanceEngine`` is the runtime of one *unified instance* in
 DynaServe terms: it owns a slot-pooled KV/state cache and executes the
 batches the local scheduler composes.  A batch is a set of (slot, token
 span) items — prefill chunks of any length and decode steps (length 1)
-run together in ONE padded forward call, the paper's unified mixed batch.
+run together in ONE forward call, the paper's unified mixed batch.  A
+paged engine packs the batch's tokens into one stream of rows, rounded
+up to a rung of its row ladder (``row_ladder``), so every token-wise op
+computes the real tokens and few pads; its attention runs the decode
+kernel on the decode-only rung and otherwise scatters the query rows
+into a (slots, chunk) layout for the chunked-prefill kernel.  A
+dense-cache engine (recurrent, ring-buffer, enc-dec and frontend
+architectures, whose scans and ring writes need each slot's sequence)
+pads the batch to (slots, the longest item's bucket), and so does a
+paged mixture of experts whose capacity can drop a token, whose pads
+compete for capacity as the reference's do.
 
 This mirrors ``repro.engine.runner.InstanceEngine`` with its page pool
 and its dense slot cache.  The engine lives on the device of its
@@ -29,7 +39,8 @@ the reference's virtual devices do: the shards time-share the device.
 An engine whose shards all lie on one card (a one-device engine, or a
 sharded one on a repeated device) runs its step as the reference's
 ``jax.jit`` of the step (of ``shard_map`` over it, for a sharded one)
-does: compiled once per ``(T, n_pp)`` bucket and dispatched without
+does: compiled once per ``(rung, n_pp)`` key (``(T, n_pp)`` on a padded
+step) and dispatched without
 waiting.  At a key's first use the engine runs one eager step with every
 slot inactive (every write lands in the caches' scratch rows, so no
 cache byte changes; it builds the kernels and loads what they need
@@ -71,6 +82,7 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mixers import packed_rows
 from repro_torch.models.model import (
     forward, init_cache, init_paged_cache, supports_paged_kv,
 )
@@ -95,6 +107,41 @@ def bucket_ladder(max_chunk: int) -> Tuple[int, ...]:
 
 
 BUCKETS = bucket_ladder(DEFAULT_MAX_CHUNK)
+
+
+def row_ladder(n_slots: int, max_chunk: int) -> Tuple[int, ...]:
+    """The rungs of a paged engine's packed steps, each a graph key's
+    first half: 1, the decode-only step (one token a slot, ``n_slots``
+    rows), then row counts that a step's tokens round up to.  With C the
+    top of ``bucket_ladder(max_chunk)``: c + ``n_slots`` for each power
+    of two c from 16 to C (a chunk of c tokens beside a decode row of
+    every other slot), 2 C + ``n_slots`` (two whole chunks and the
+    decodes), and ``n_slots`` x C, the largest step the scheduler can
+    compose (a whole chunk a slot), which every smaller rung lies
+    below."""
+    C = bucket_ladder(max_chunk)[-1]
+    top = n_slots * C
+    if C == 1:
+        return (1,)                 # every step is a decode-only step
+    mid = {c + n_slots for c in bucket_ladder(C) if c >= 16}
+    if C >= 16:
+        mid.add(2 * C + n_slots)
+    return (1,) + tuple(sorted(r for r in mid if r < top)) + (top,)
+
+
+def rung_chunk(rung: int, n_slots: int, max_chunk: int) -> int:
+    """The query rows a slot takes in the attention of a packed step of
+    rung ``rung`` (``row_ladder``), which is also the longest item the
+    rung takes: 1 on the decode-only rung, c on rung c + ``n_slots``,
+    and the chunk ladder's top C on 2 C + ``n_slots`` and on the top
+    rung.  A chunk of c tokens beside decode rows thus attends as it
+    does alone in a (``n_slots``, c) step."""
+    if rung == 1:
+        return 1
+    C = bucket_ladder(max_chunk)[-1]
+    if rung == n_slots * C:
+        return C
+    return max(c for c in bucket_ladder(C) if c <= rung - n_slots)
 
 
 def bucket_of(n: int, buckets: Sequence[int] = BUCKETS) -> int:
@@ -149,10 +196,10 @@ def _on(device: torch.device):
 
 @dataclasses.dataclass(eq=False)
 class _Graph:
-    """One captured step: the CUDA graph of the forward at one (T, n_pp)
-    key, its static packed inputs and logits (both allocated outside the
-    graph pool), and the kernel launches its capture counted, which every
-    replay adds to the wrappers' counters."""
+    """One captured step: the CUDA graph of the forward at one (bucket,
+    n_pp) key, its static packed inputs and logits (both allocated
+    outside the graph pool), and the kernel launches its capture counted,
+    which every replay adds to the wrappers' counters."""
     graph: object
     inputs: torch.Tensor
     logits: torch.Tensor
@@ -192,13 +239,24 @@ def can_graph(devices: Sequence) -> bool:
 
 
 def _unpack(buf: torch.Tensor, B: int, T: int, n_pp: int):
-    """The step's inputs out of one packed int32 buffer: tokens (B, T),
-    pos_offset, n_valid and active (B,) each, and the block tables
-    (B, n_pp) of a paged step (``InstanceEngine._pack`` lays it out)."""
+    """A padded step's inputs out of one packed int32 buffer: tokens
+    (B, T), pos_offset, n_valid and active (B,) each, and the block
+    tables (B, n_pp) of a paged step (``InstanceEngine._pack`` lays it
+    out)."""
     tokens = buf[:B * T].view(B, T)
     pos_offset, n_valid, active = buf[B * T:B * (T + 3)].view(3, B)
     tables = buf[B * (T + 3):].view(B, n_pp) if n_pp else None
     return tokens, pos_offset, n_valid, active != 0, tables
+
+
+def _unpack_rows(buf: torch.Tensor, B: int, N: int, n_pp: int):
+    """A paged step's inputs out of one packed int32 buffer: the N rows'
+    tokens, slots and positions (N,) each, then each slot's pos_offset,
+    n_valid, active and last row (B,) each, then the block tables
+    (B, n_pp) (``InstanceEngine._pack`` lays it out)."""
+    tokens, slot, pos = buf[:3 * N].view(3, N)
+    per_slot = buf[3 * N:3 * N + 4 * B].view(4, B)
+    return tokens, slot, pos, per_slot, buf[3 * N + 4 * B:].view(B, n_pp)
 
 
 class InstanceEngine:
@@ -225,15 +283,27 @@ class InstanceEngine:
     copy.  Without ``devices`` (or with one) the engine runs on the
     device of its parameters.
 
-    ``graphs`` (on by default) captures the step once per ``(T, n_pp)``
-    key where ``can_graph(self.shard_devices)``: every shard on one card.
+    ``packed`` says whether the engine packs its steps into rows: a paged
+    one does unless its mixture of experts can drop a token (capacity
+    factor under E / K), where the pads of a padded step compete for
+    capacity as in the reference.  ``buckets`` is the first half of the
+    step's keys: a packed engine's row ladder (``row_ladder(n_slots,
+    max_chunk)``; a step takes rung 1 when every item is one token, else
+    the least rung that holds its tokens and whose chunk,
+    ``rung_chunks``, holds its longest item), another's T ladder
+    (``chunk_buckets``, ``bucket_ladder(max_chunk)``).  ``graphs`` (on
+    by default) captures the step once per (bucket, n_pp) key where
+    ``can_graph(self.shard_devices)``: every shard on one card.
     ``self.graphs`` says whether this engine does.
 
     ``iid`` names the instance in the engine's trace spans and step
-    records (``utils.trace``).  Counters, always kept: ``iterations``
-    (steps), ``rows_computed`` (``n_slots`` x the T bucket, summed over
-    the steps), ``rows_real`` (the steps' tokens), ``replays`` (graph
-    replays), ``captures`` and ``capture_seconds``.
+    records (``utils.trace``).  A step's record holds ``T``, the longest
+    item's bucket in ``buckets`` (1 exactly for a decode-only step), and
+    ``N``, the rows it computed.  Counters, always kept: ``iterations``
+    (steps), ``rows_computed`` (each step's N: ``n_slots`` on the decode
+    rung, the rung on another, ``n_slots`` x T on a padded step, summed
+    over the steps), ``rows_real`` (the steps' tokens), ``replays``
+    (graph replays), ``captures`` and ``capture_seconds``.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -259,7 +329,7 @@ class InstanceEngine:
         self.max_len = max_len
         self.window_override = window_override
         self.max_chunk = max_chunk
-        self.buckets = bucket_ladder(max_chunk)
+        self.chunk_buckets = bucket_ladder(max_chunk)
         self.kv_precision = get_precision(kv_precision)
         self.devices = ([as_device(d) for d in devices]
                         if devices is not None and len(devices) > 1
@@ -300,6 +370,17 @@ class InstanceEngine:
                                       window_override=window_override,
                                       device=d, n_kv_heads=kv)
                            for d in self.shard_devices]
+        # the step's layout: a paged engine packs its tokens into rows,
+        # unless its mixture can drop a token (capacity under E / K),
+        # where the pads compete for capacity as in the reference
+        self.packed = self.paged and not (
+            cfg.moe_experts
+            and cfg.moe_capacity_factor * cfg.moe_top_k < cfg.moe_experts)
+        self.buckets = self.chunk_buckets
+        if self.packed:
+            self.buckets = row_ladder(n_slots, max_chunk)
+            self.rung_chunks = {r: rung_chunk(r, n_slots, max_chunk)
+                                for r in self.buckets}
         # shared-prefix KV cache: trie over the page pool + per-slot
         # claims; the allocator evicts through it under pressure
         self.prefix: Optional[PrefixCache] = None
@@ -313,7 +394,7 @@ class InstanceEngine:
         self._group: Optional[ShardGroup] = None
         if self.tp > 1:
             self._shard_instance()
-        # the compiled step: one CUDA graph per (T, n_pp) key, where
+        # the compiled step: one CUDA graph per (bucket, n_pp) key, where
         # every shard lies on one card
         self.graphs = graphs and can_graph(self.shard_devices)
         self._graphs: Dict[Tuple[int, int], _Graph] = {}
@@ -537,59 +618,122 @@ class InstanceEngine:
             out[d] = pinned.to(d, non_blocking=True)
         return out
 
-    def _pack(self, items: Sequence[BatchItem], T: int,
-              n_pp: int) -> np.ndarray:
-        """A step's inputs in one int32 buffer (``_unpack`` reads it):
-        padding B to ``n_slots`` and T to its bucket, and the block tables
-        padded to ``n_pp`` pages."""
+    def _rows(self, key: int) -> int:
+        """The rows a step of key ``key`` computes: a rung's, or
+        ``n_slots`` x T of a padded step."""
+        if not self.packed:
+            return self.n_slots * key
+        return self.n_slots if key == 1 else key
+
+    def _buffer_len(self, key: int, n_pp: int) -> int:
+        """Length of the packed int32 buffer of a step of key
+        (``key``, ``n_pp``)."""
         B = self.n_slots
-        buf = np.zeros(B * (T + 3 + n_pp), np.int32)
-        tokens = buf[:B * T].reshape(B, T)
-        pos_off, n_valid, active = buf[B * T:B * (T + 3)].reshape(3, B)
-        for it in items:
+        if self.packed:
+            return 3 * self._rows(key) + B * (4 + n_pp)
+        return B * (key + 3 + n_pp)
+
+    def _pack(self, items: Sequence[BatchItem], key: int,
+              n_pp: int) -> np.ndarray:
+        """A step's inputs in one int32 buffer of ``_buffer_len``.
+
+        A packed step (``_unpack_rows`` reads it) packs its tokens into
+        one stream of rows, slot by slot, padded to its rung ``key``'s
+        rows: each row's token, slot and absolute position; each slot's
+        pos_offset, n_valid, active and the row of its last token; the
+        block tables padded to ``n_pp`` pages.  The decode-only rung
+        puts slot b's token at row b.  Pad rows are zeros, which
+        ``mixers.packed_rows`` tells apart by the slots' rows.  A padded
+        step (``_unpack``) pads B to ``n_slots`` and T to its bucket
+        ``key``, then the block tables of a paged one."""
+        B = self.n_slots
+        buf = np.zeros(self._buffer_len(key, n_pp), np.int32)
+        if not self.packed:
+            tokens = buf[:B * key].reshape(B, key)
+            pos_off, n_valid, active = buf[B * key:B * (key + 3)].reshape(
+                3, B)
+            for it in items:
+                t = len(it.tokens)
+                tokens[it.slot, :t] = it.tokens
+                pos_off[it.slot] = it.pos_offset
+                n_valid[it.slot] = t
+                active[it.slot] = 1
+            if n_pp:
+                buf[B * (key + 3):] = self.allocator.table_array(
+                    n_pp).reshape(-1)
+            return buf
+        N = self._rows(key)
+        tokens, slot, pos = buf[:3 * N].reshape(3, N)
+        pos_off, n_valid, active, last = buf[3 * N:3 * N + 4 * B].reshape(
+            4, B)
+        r = 0
+        for it in sorted(items, key=lambda it: it.slot):
             t = len(it.tokens)
-            tokens[it.slot, :t] = it.tokens
+            r0 = it.slot if key == 1 else r
+            tokens[r0:r0 + t] = it.tokens
+            slot[r0:r0 + t] = it.slot
+            pos[r0:r0 + t] = np.arange(it.pos_offset, it.pos_offset + t)
             pos_off[it.slot] = it.pos_offset
             n_valid[it.slot] = t
             active[it.slot] = 1
-        if n_pp:
-            buf[B * (T + 3):] = self.allocator.table_array(n_pp).reshape(-1)
+            last[it.slot] = r0 + t - 1
+            r += t
+        buf[3 * N + 4 * B:] = self.allocator.table_array(n_pp).reshape(-1)
         return buf
 
-    def _forward(self, rank: int, buf: torch.Tensor, T: int,
+    def _forward(self, rank: int, buf: torch.Tensor, key: int,
                  n_pp: int) -> torch.Tensor:
         """Shard ``rank``'s step on its packed inputs: (B, vocab) f32
-        last-token logits; the cache is written in place."""
-        tokens, pos_off, n_valid, active, tables = _unpack(
-            buf, self.n_slots, T, n_pp)
-        kw = ({"block_tables": tables, "page_size": self.page_size}
-              if self.paged else {"window_override": self.window_override})
+        last-token logits; the cache is written in place.  A packed step
+        runs on its rows; the attention takes them as a (B, T) chunk of
+        the rung's chunk (``rung_chunk``, ``mixers.PackedRows``), one
+        token a slot on the decode rung."""
+        B = self.n_slots
         with torch.no_grad(), _on(self.shard_devices[rank]):
-            logits, _, _ = forward(
-                self.shard_params[rank], self.cfg, tokens,
-                cache=self.caches[rank], pos_offset=pos_off, active=active,
-                n_valid=n_valid, last_only=True, **kw)
+            if self.packed:
+                N = self._rows(key)
+                tokens, slot, pos, per_slot, tables = _unpack_rows(
+                    buf, B, N, n_pp)
+                logits, _, _ = forward(
+                    self.shard_params[rank], self.cfg, tokens,
+                    cache=self.caches[rank], last_only=True,
+                    rows=packed_rows(slot, pos, *per_slot,
+                                     self.rung_chunks[key]),
+                    block_tables=tables, page_size=self.page_size)
+            else:
+                tokens, pos_off, n_valid, active, tables = _unpack(
+                    buf, B, key, n_pp)
+                kw = ({"block_tables": tables, "page_size": self.page_size}
+                      if self.paged else
+                      {"window_override": self.window_override})
+                logits, _, _ = forward(
+                    self.shard_params[rank], self.cfg, tokens,
+                    cache=self.caches[rank], pos_offset=pos_off,
+                    active=active, n_valid=n_valid, last_only=True, **kw)
         return logits[:, 0]
 
     def dispatch_batch(self, items: Sequence[BatchItem]) \
             -> Optional[StepHandle]:
         """Issue one unified mixed batch without waiting for the device.
 
-        All host-side work happens here — padding B to ``n_slots``, T to
-        the bucket ladder and the block tables to the page ladder, block
-        table growth, staging the inputs, and the step: a replay of the
-        key's graph, or the eager forward (on every shard of a sharded
-        instance; this returns once each shard has enqueued its step) —
-        and the kernels run on while the caller schedules the next batch
-        and pumps KV streams.  A key's first use captures its graph,
-        which waits on the device once.  Returns ``None`` for an empty
-        batch."""
+        All host-side work happens here — packing the tokens into rows
+        padded to the row ladder (``packed``), or padding B to
+        ``n_slots`` and T to the bucket ladder, the block tables to the
+        page ladder, block table growth, staging the inputs, and the
+        step: a replay of the key's graph, or the eager forward (on every
+        shard of a sharded instance; this returns once each shard has
+        enqueued its step) — and the kernels run on while the caller
+        schedules the next batch and pumps KV streams.  A key's first use
+        captures its graph, which waits on the device once.  Returns
+        ``None`` for an empty batch."""
         if not items:
             return None
         sp = trace.on and trace.begin("engine.dispatch", trace.new_step(),
                                       self.iid)
         pk = sp and trace.begin("engine.pack", sp[4], self.iid)
-        T = bucket_of(max(len(it.tokens) for it in items), self.buckets)
+        longest = max(len(it.tokens) for it in items)
+        rows = sum(len(it.tokens) for it in items)
+        key = T = bucket_of(longest, self.chunk_buckets)   # or raises
         n_pp = 0
         if self.paged:
             # grow block tables to cover every item's span before the
@@ -604,33 +748,42 @@ class InstanceEngine:
                 self._apply_forks(forks)
             n_pp = bucket_of(max(1, self.allocator.max_table_len),
                              self.page_buckets)
-        packed = self._pack(items, T, n_pp)
+        if self.packed:
+            # the key: the least rung that holds the rows and whose
+            # chunk holds the longest item; the record's T: the longest
+            # item's rung, 1 exactly for a decode-only step
+            T = bucket_of(longest, self.buckets)
+            key = 1 if T == 1 else min(
+                r for r in self.buckets[1:]
+                if r >= rows and self.rung_chunks[r] >= longest)
+        N = self._rows(key)
+        packed = self._pack(items, key, n_pp)
         if pk:
             trace.end(pk)
-        captured = bool(sp) and self.graphs and (T, n_pp) not in self._graphs
+        captured = (bool(sp) and self.graphs
+                    and (key, n_pp) not in self._graphs)
         if self.graphs:
-            logits, start, launch_ns = self._replay(T, n_pp, packed, sp)
+            logits, start, launch_ns = self._replay(key, n_pp, packed, sp)
         else:
-            logits, start, launch_ns = self._eager(T, n_pp, packed, sp)
+            logits, start, launch_ns = self._eager(key, n_pp, packed, sp)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event(enable_timing=bool(sp))
             event.record(torch.cuda.current_stream(self.device))
-        rows = sum(len(it.tokens) for it in items)
         self.iterations += 1
-        self.rows_computed += self.n_slots * T
+        self.rows_computed += N
         self.rows_real += rows
         handle = StepHandle(items=items, logits=logits, event=event)
         if sp:
             handle.start = start
-            handle.record = {"step": sp[4], "iid": self.iid, "T": T,
+            handle.record = {"step": sp[4], "iid": self.iid, "T": T, "N": N,
                              "n_pp": n_pp, "n_slots": self.n_slots,
                              "rows": rows, "captured": captured,
                              "device_s": launch_ns * 1e-9}
             trace.end(sp)
         return handle
 
-    def _eager(self, T: int, n_pp: int, packed: np.ndarray, sp=False):
+    def _eager(self, key: int, n_pp: int, packed: np.ndarray, sp=False):
         """The eager step on ``packed``: (logits, the start event or None,
         the ``engine.launch`` span's nanoseconds or False); ``sp``, the
         open ``engine.dispatch`` span, or False with tracing off."""
@@ -643,10 +796,10 @@ class InstanceEngine:
         if st:
             trace.end(st)
         la = sp and trace.begin("engine.launch", sp[4], self.iid)
-        logits = self._step(bufs, T, n_pp)
+        logits = self._step(bufs, key, n_pp)
         return logits, start, la and trace.end(la)
 
-    def _step(self, bufs: Dict[torch.device, torch.Tensor], T: int,
+    def _step(self, bufs: Dict[torch.device, torch.Tensor], key: int,
               n_pp: int, stream=None) -> torch.Tensor:
         """Every shard's step on its device's packed inputs ``bufs``;
         shard 0's logits.  One device: on the caller's thread.  Sharded:
@@ -654,7 +807,7 @@ class InstanceEngine:
         are their own, each with ``stream`` (when given) as its current
         stream."""
         def step(rank):
-            return self._forward(rank, bufs[self.shard_devices[rank]], T,
+            return self._forward(rank, bufs[self.shard_devices[rank]], key,
                                  n_pp)
 
         if self._group is None:
@@ -662,12 +815,12 @@ class InstanceEngine:
         on = None if stream is None else (lambda r: torch.cuda.stream(stream))
         return self._group.run(step, on)[0]
 
-    def _replay(self, T: int, n_pp: int, packed: np.ndarray, sp=False):
+    def _replay(self, key: int, n_pp: int, packed: np.ndarray, sp=False):
         """Run the key's graph on ``packed`` (capturing it at first use):
         copy the inputs into its static buffer, replay, and clone the
         logits out, all on the current stream.  Returns what ``_eager``
         returns."""
-        g = self._graphs.get((T, n_pp)) or self._capture(T, n_pp)
+        g = self._graphs.get((key, n_pp)) or self._capture(key, n_pp)
         st = sp and trace.begin("engine.stage", sp[4], self.iid)
         pinned = torch.from_numpy(packed).pin_memory()
         start = None
@@ -685,8 +838,8 @@ class InstanceEngine:
         self.replays += 1
         return logits, start, la and trace.end(la)
 
-    def _capture(self, T: int, n_pp: int) -> _Graph:
-        """Capture the step of key (T, n_pp) into a CUDA graph, as
+    def _capture(self, key: int, n_pp: int) -> _Graph:
+        """Capture the step of key (``key``, n_pp) into a CUDA graph, as
         ``jax.jit`` compiles at first use.  One eager step first, on the
         static inputs with every slot inactive, on the capture stream:
         it writes only the caches' scratch rows and keeps the recurrent
@@ -711,13 +864,13 @@ class InstanceEngine:
             before = launch_counts()
             caller = torch.cuda.current_stream(dev)
             try:
-                inputs = torch.zeros(self.n_slots * (T + 3 + n_pp),
+                inputs = torch.zeros(self._buffer_len(key, n_pp),
                                      dtype=torch.int32, device=dev)
                 bufs = {dev: inputs}
                 stream = _capture_stream(dev)
                 stream.wait_stream(caller)
                 with torch.cuda.stream(stream):
-                    shape = self._step(bufs, T, n_pp, stream).shape
+                    shape = self._step(bufs, key, n_pp, stream).shape
                 caller.wait_stream(stream)
                 warm = launch_counts()
                 logits = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -725,7 +878,7 @@ class InstanceEngine:
                 with torch.cuda.graph(graph, pool=graph_pool(dev),
                                       stream=stream,
                                       capture_error_mode="thread_local"):
-                    logits.copy_(self._step(bufs, T, n_pp, stream))
+                    logits.copy_(self._step(bufs, key, n_pp, stream))
             except BaseException:
                 _GRAPH_POOLS.pop(dev.index or 0, None)
                 torch.cuda.set_stream(caller)
@@ -737,11 +890,11 @@ class InstanceEngine:
             torch.cuda.empty_cache()        # the warm-up's cached blocks
         g = _Graph(graph, inputs, logits,
                    {k: n - warm[k] for k, n in after.items()})
-        self._graphs[(T, n_pp)] = g
+        self._graphs[(key, n_pp)] = g
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         if cp:
-            trace.end(cp, T=T, n_pp=n_pp)
+            trace.end(cp, T=key, n_pp=n_pp)
         return g
 
     def collect_batch(self, handle: Optional[StepHandle]) \

@@ -24,6 +24,7 @@ kernel) in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -289,6 +290,57 @@ def paged_write_plan(batch_pos, block_tables, page_size: int, n_pages: int,
     return phys.reshape(-1), within.reshape(-1)
 
 
+@dataclasses.dataclass
+class PackedRows:
+    """A paged engine's step with its tokens packed into one stream of N
+    rows (``engine.runner.InstanceEngine``'s row layout), as the forward
+    reads it.  ``slot`` and ``pos`` (N,): each row's slot and absolute
+    position; ``pos_offset`` and ``last`` (B,): each slot's first
+    position and the row of its last token; ``valid`` (N,): the rows that
+    hold a token (a pad row writes nothing); ``T``: the query rows a slot
+    takes in the attention, 1 for the decode-only step (one token a
+    slot, row b is slot b: the paged-decode kernel), else the chunk
+    length the slots' queries are scattered to for the chunked-prefill
+    kernel; ``dest`` (N,): each row's place in that (B, T) layout, B * T
+    for a row that holds no token."""
+    slot: torch.Tensor
+    pos: torch.Tensor
+    pos_offset: torch.Tensor
+    last: torch.Tensor
+    valid: torch.Tensor
+    dest: torch.Tensor
+    T: int
+
+
+def packed_rows(slot, pos, pos_offset, n_valid, active, last,
+                T: int) -> PackedRows:
+    """The ``PackedRows`` of a step from its per-row ``slot`` and ``pos``
+    (N,) and per-slot ``pos_offset``, ``n_valid``, ``active`` and ``last``
+    (B,) int tensors.  A slot's tokens are the ``n_valid`` rows that end
+    at its ``last``; every other row (a pad, or any row of a step whose
+    slots are all inactive, such as the all-zero inputs of a graph's
+    warm-up) is invalid, whatever its slot and position say."""
+    slot, last = slot.long(), last.long()
+    B = last.shape[0]
+    r = torch.arange(slot.shape[0], device=slot.device)
+    j = r - last[slot] + n_valid.long()[slot] - 1   # index within its item
+    valid = active.bool()[slot] & (r <= last[slot]) & (j >= 0)
+    return PackedRows(slot, pos.long(), pos_offset.long(), last, valid,
+                      torch.where(valid, slot * T + j, B * T), T)
+
+
+def rows_write_plan(rows: PackedRows, block_tables, page_size: int,
+                    n_pages: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``paged_write_plan`` for packed rows: the physical page and offset
+    of each of the N rows, page ``n_pages`` (the scratch page) for a row
+    that holds no token."""
+    n_pp = block_tables.shape[1]
+    logical = torch.div(rows.pos, page_size, rounding_mode="floor")
+    within = rows.pos - logical * page_size
+    phys = block_tables.long()[rows.slot, logical.clamp(0, n_pp - 1)]
+    return torch.where(rows.valid, phys, n_pages), within
+
+
 def dense_write_plan(batch_pos, S_buf: int, ring: int = 0, active=None,
                      token_mask=None, base: int = 0):
     """Where the chunk's K/V rows go in a dense slot cache of ``S_buf``
@@ -380,7 +432,7 @@ def _write_mask(B: int, T: int, device, active, token_mask):
 
 def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
                          block_tables, page_size: int, active, token_mask,
-                         plan=None):
+                         plan=None, rows: Optional[PackedRows] = None):
     """Attention over a paged KV pool (the DynaServe serving hot path).
 
     The chunk's K/V is written in place into the physical pages the
@@ -392,22 +444,30 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
     prefix and run ``chunked_prefill_attention`` with
     ``offsets = batch_pos[:, 0]``.  On CUDA tensors both are the
     hand-written kernels; on CPU tensors their plain versions.
+
+    With ``rows`` (a paged engine's packed step) q, k and v are (1, N,
+    heads, hd), one row a token: the decode-only step (``rows.T == 1``)
+    runs the paged-decode kernel on its rows, one a slot; any other step
+    scatters its query rows into (B, rows.T), runs the chunked-prefill
+    kernel as above, and gathers the output back to rows.
     Returns (y_pre_wo, cache).
     """
     B, T = batch_pos.shape
     KV, hd = k.shape[2], k.shape[3]
     ck, cv = cache["k_pages"], cache["v_pages"]
     if plan is None:
-        plan = paged_write_plan(batch_pos, block_tables, page_size,
-                                ck.shape[0], active, token_mask)
+        plan = (rows_write_plan(rows, block_tables, page_size, ck.shape[0])
+                if rows is not None else
+                paged_write_plan(batch_pos, block_tables, page_size,
+                                 ck.shape[0], active, token_mask))
     phys, within = plan
     kw = k.reshape(B * T, KV, hd)
     vw = v.reshape(B * T, KV, hd)
 
     def put(leaf, src):
         # every row written, the dropped ones to the scratch page
-        rows, at = _scratch_rows(leaf, 1, phys)
-        as_indexable(rows)[at, within] = as_indexable(src.to(leaf.dtype))
+        flat, at = _scratch_rows(leaf, 1, phys)
+        as_indexable(flat)[at, within] = as_indexable(src.to(leaf.dtype))
 
     quantized = "k_scales" in cache
     if quantized:
@@ -423,18 +483,44 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
         put(ck, kw)
         put(cv, vw)
         cks = cvs = None
+    if rows is not None:
+        return _packed_attention(q[0], ck, cv, cks, cvs, block_tables,
+                                 rows)[None], cache
     if T == 1:
         lengths = batch_pos[:, 0] + 1
         y = paged_decode_attention_op(q[:, 0], ck, cv, block_tables, lengths,
                                       cks, cvs)
         return y.reshape(B, 1, -1), cache
-    offsets = batch_pos[:, 0]
+    y = _prefill_over_pages(q, ck, cv, cks, cvs, block_tables,
+                            batch_pos[:, 0])
+    return y.reshape(B, T, -1), cache
+
+
+def _prefill_over_pages(q, ck, cv, cks, cvs, block_tables, offsets):
+    """The chunked-prefill kernel of (B, T) queries at ``offsets`` over
+    the slots' pages, gathered to dense per-slot K/V (and scales)."""
     kg = gather_pages(ck, block_tables)
     vg = gather_pages(cv, block_tables)
     ksg = None if cks is None else gather_scales(cks, block_tables)
     vsg = None if cvs is None else gather_scales(cvs, block_tables)
-    y = chunked_prefill_attention_op(q, kg, vg, offsets, ksg, vsg)
-    return y.reshape(B, T, -1), cache
+    return chunked_prefill_attention_op(q, kg, vg, offsets, ksg, vsg)
+
+
+def _packed_attention(q, ck, cv, cks, cvs, block_tables, rows: PackedRows):
+    """Attention of a packed step's query rows q (N, H, hd) over the pool
+    that already holds their K/V: (N, H * hd)."""
+    N = q.shape[0]
+    if rows.T == 1:
+        y = paged_decode_attention_op(q, ck, cv, block_tables,
+                                      rows.pos_offset + 1, cks, cvs)
+        return y.reshape(N, -1)
+    B, T = block_tables.shape[0], rows.T
+    qs = q.new_zeros((B * T + 1,) + q.shape[1:])
+    qs.index_copy_(0, rows.dest, q)       # a pad row to the scratch row
+    y = _prefill_over_pages(qs[:B * T].view(B, T, *q.shape[1:]), ck, cv,
+                            cks, cvs, block_tables, rows.pos_offset)
+    return y.reshape(B * T, -1).index_select(
+        0, rows.dest.clamp(max=B * T - 1))
 
 
 def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
@@ -445,7 +531,8 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
                   valid_len: Optional[torch.Tensor] = None,
                   append_external: bool = False,
                   block_tables=None, page_size: int = 0,
-                  rope=None, plans: Optional[dict] = None):
+                  rope=None, plans: Optional[dict] = None,
+                  rows: Optional[PackedRows] = None):
     """Self-attention. Returns (y, new_cache).
 
     ``pos_offset`` may be an int or a per-request (B,) tensor (unified
@@ -457,6 +544,9 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
     ``rope``: the (sin, cos) tables of the cached path's positions, and
     ``plans``: a dict in which the cache-write plans are kept; ``forward``
     shares both across layers, and they are built here if absent.
+    ``rows``: a paged engine's packed step (``PackedRows``); x is then
+    (1, N, d_model), one row a token, and ``pos_offset``, ``active`` and
+    ``token_mask`` are not read.
     """
     B, T, _ = x.shape
     window = window_override if window_override is not None else (
@@ -484,7 +574,8 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
         return _attn_out(y, p, cfg), None
 
     # ---- cached path (prefill chunk / decode) -----------------------------
-    batch_pos = _batch_positions(pos_offset, B, T, x.device)
+    batch_pos = (rows.pos[None] if rows is not None
+                 else _batch_positions(pos_offset, B, T, x.device))
     if cfg.pos_embedding == "rope":
         if rope is None:
             rope = rope_tables(batch_pos, cfg.hd, cfg.rope_theta,
@@ -496,12 +587,15 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
         assert block_tables is not None and page_size > 0, \
             "paged cache needs block_tables + page_size"
         if "paged" not in plans:
-            plans["paged"] = paged_write_plan(
-                batch_pos, block_tables, page_size,
-                cache["k_pages"].shape[0], active, token_mask)
+            n_pages = cache["k_pages"].shape[0]
+            plans["paged"] = (
+                rows_write_plan(rows, block_tables, page_size, n_pages)
+                if rows is not None else
+                paged_write_plan(batch_pos, block_tables, page_size,
+                                 n_pages, active, token_mask))
         y, cache = _paged_attention_fwd(
             p, q, k, v, cfg, cache, batch_pos, block_tables, page_size,
-            active, token_mask, plan=plans["paged"])
+            active, token_mask, plan=plans["paged"], rows=rows)
         return _attn_out(y, p, cfg), cache
 
     seq = _seq_shard()
@@ -812,7 +906,7 @@ def rglru_fwd(p, x, cfg: ModelConfig, *, cache: Optional[dict] = None,
 def mixer_fwd(kind: str, p, x, cfg: ModelConfig, *, cache=None, pos_offset=0,
               window_override=None, active=None, token_mask=None,
               valid_len=None, append_external=False, block_tables=None,
-              page_size=0, rope=None, plans=None):
+              page_size=0, rope=None, plans=None, rows=None):
     if kind in ("attn", "local_attn"):
         return attention_fwd(p, x, cfg, kind=kind, cache=cache,
                              pos_offset=pos_offset,
@@ -820,7 +914,7 @@ def mixer_fwd(kind: str, p, x, cfg: ModelConfig, *, cache=None, pos_offset=0,
                              token_mask=token_mask, valid_len=valid_len,
                              append_external=append_external,
                              block_tables=block_tables, page_size=page_size,
-                             rope=rope, plans=plans)
+                             rope=rope, plans=plans, rows=rows)
     if kind == "ssd":
         return ssd_fwd(p, x, cfg, cache=cache, pos_offset=pos_offset,
                        active=active, token_mask=token_mask,

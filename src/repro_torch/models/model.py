@@ -35,7 +35,7 @@ from repro_torch.models.layers import (
     mlp_fwd, norm_fwd, rope_tables, sinusoidal_table,
 )
 from repro_torch.models.mixers import (
-    _batch_positions, cross_attention_fwd, mixer_fwd,
+    PackedRows, _batch_positions, cross_attention_fwd, mixer_fwd,
 )
 from repro_torch.models.tp import tp_axis, tp_context, tp_rank
 from repro_torch.utils.device import resolve_device, torch_dtype
@@ -359,13 +359,14 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 def _block_fwd(kind: str, bp, x, cfg: ModelConfig, *, cache, pos_offset,
                window_override, cross_cache=None, enc_out=None, active=None,
                token_mask=None, valid_len=None, block_tables=None,
-               page_size=0, rope=None, plans=None, append_external=False):
+               page_size=0, rope=None, plans=None, append_external=False,
+               rows=None):
     h, new_cache = mixer_fwd(
         kind, bp["mixer"], norm_fwd(bp["norm1"], x, cfg.norm), cfg,
         cache=cache, pos_offset=pos_offset, window_override=window_override,
         active=active, token_mask=token_mask, valid_len=valid_len,
         append_external=append_external, block_tables=block_tables,
-        page_size=page_size, rope=rope, plans=plans)
+        page_size=page_size, rope=rope, plans=plans, rows=rows)
     x = x + h
     new_cross = None
     if cfg.cross_attention and "cross" in bp:
@@ -406,7 +407,8 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
             active=None, n_valid=None, last_only: bool = False,
             block_tables=None, page_size: int = 0, remat: bool = False,
             append_external: bool = False,
-            logits_slice: Optional[int] = None):
+            logits_slice: Optional[int] = None,
+            rows: Optional[PackedRows] = None):
     """Run the decoder stack.
 
     tokens: (B, T) int token ids, or None when ``extra_embeds`` carry
@@ -441,6 +443,12 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         (G, B, T), ``tail`` one per tail block without the G axis, and
         ``cross`` the cross K/V.  A recurrent layer's state is still
         updated in place, and its entry is that state.
+    rows: a paged engine's packed step (``mixers.packed_rows``), with
+        ``block_tables`` and ``page_size``: ``tokens`` is then the (N,)
+        row stream, every token-wise op runs on its N rows,
+        ``pos_offset``, ``active`` and ``n_valid`` are not read, and
+        ``last_only`` takes each slot's last row, so the logits are
+        (B, 1, vocab) as in the (B, T) layout.
     Returns (logits f32, cache, aux_loss): the MoE load-balance terms
     summed over layers, 0 for a dense model.
     """
@@ -448,7 +456,11 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         raise ValueError("remat recomputes the layers in the backward pass "
                          "and takes no cache: a recompute would write the "
                          "cache twice")
+    if rows is not None and block_tables is None:
+        raise ValueError("packed rows run only over a paged cache")
     dt = torch_dtype(cfg.dtype)
+    if rows is not None:
+        tokens = tokens[None]             # the rows as a (1, N) batch
     x = params["embed"][tokens.long()].to(dt) if tokens is not None else None
     if extra_embeds is not None:
         ee = extra_embeds.to(dt)
@@ -460,15 +472,18 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
         token_mask = torch.arange(T, device=dev)[None] < n_valid[:, None]
 
     if cfg.pos_embedding in ("learned", "sinusoidal"):
-        po = torch.as_tensor(pos_offset, device=dev).long()
-        ar = torch.arange(T, device=dev)
-        pos = (po[:, None] + ar[None]) if po.dim() else (po + ar)
+        if rows is not None:
+            pos = rows.pos[None]
+        else:
+            po = torch.as_tensor(pos_offset, device=dev).long()
+            ar = torch.arange(T, device=dev)
+            pos = (po[:, None] + ar[None]) if po.dim() else (po + ar)
         if cfg.pos_embedding == "learned":
             pe = params["pos_embed"][pos]
         else:
             pe = _sinusoidal_of(pos.reshape(-1), cfg.d_model).reshape(
                 pos.shape + (cfg.d_model,))
-        x = x + (pe if po.dim() else pe[None]).to(dt)
+        x = x + (pe if pos.dim() == 2 else pe[None]).to(dt)
 
     enc_out = None
     if cfg.cross_attention and frames is not None:
@@ -477,8 +492,10 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
 
     rope = None
     if cache is not None and cfg.pos_embedding == "rope":
-        rope = rope_tables(_batch_positions(pos_offset, B, T, dev), cfg.hd,
-                           cfg.rope_theta, cfg.rope_fraction)
+        rope = rope_tables(
+            rows.pos[None] if rows is not None
+            else _batch_positions(pos_offset, B, T, dev),
+            cfg.hd, cfg.rope_theta, cfg.rope_fraction)
     plans = {}                    # cache-write plans, shared by the layers
     aux_total = 0.0
     G, PL = cfg.n_groups, cfg.pattern_len
@@ -521,7 +538,7 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
             enc_out=enc_out, active=active, token_mask=token_mask,
             valid_len=n_valid, block_tables=block_tables,
             page_size=page_size, rope=rope, plans=plans,
-            append_external=append_external)
+            append_external=append_external, rows=rows)
         aux_total = aux_total + aux
         if append_external and cache is not None:
             deltas.append(nc)
@@ -541,7 +558,9 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, pos_offset=0,
             new_cache["cross"] = cache["cross"]
 
     x = norm_fwd(params["final_norm"], x, cfg.norm)
-    if last_only:
+    if last_only and rows is not None:
+        x = x[0, rows.last][:, None]
+    elif last_only:
         idx = ((n_valid.long() - 1).clamp(min=0) if n_valid is not None
                else torch.full((B,), T - 1, device=dev, dtype=torch.long))
         x = x[torch.arange(B, device=dev), idx][:, None]

@@ -38,7 +38,8 @@ Spans (name: where; what it covers):
     engine.stage       pin_memory and the inputs' H2D enqueue
     engine.launch      graph replay (or the eager forward) and the
                        logits clone
-    engine.capture     one key's warm-up and capture (attrs T, n_pp)
+    engine.capture     one key's warm-up and capture (attrs T, the
+                       key's bucket: a rung of a paged engine; n_pp)
     engine.collect   EngineBackend.collect: the whole call
     engine.wait        the host blocked on the step's end event
     engine.d2h         the logits copied to the host
@@ -52,7 +53,9 @@ Spans (name: where; what it covers):
 Step records, one dict an engine step, opened at dispatch by the engine
 and closed by ``ServeSession._on_batch_done``, where the plan and the
 result meet: ``step``, ``iid``, ``t`` (session seconds at dispatch),
-``T``, ``n_pp``, ``n_slots``, ``rows`` (real rows), ``prefill`` (its
+``T`` (the longest item's bucket in the engine's ``buckets``: 1 for a
+decode-only step), ``N`` (rows computed), ``n_pp``, ``n_slots``,
+``rows`` (real rows), ``prefill`` (its
 tokens), ``decode`` (its rows), ``captured`` (the key was captured in
 this step), ``host_s`` (dispatch to collect), ``predicted_s`` (the
 plan's ``predicted_latency``) and ``device_s`` (CUDA events around the

@@ -780,6 +780,66 @@ def test_a_replayed_sharded_step_takes_no_turn(cuda_device, arch, prec,
     assert graphed.iterations == len(GRAPH_SPANS)
 
 
+#: packed steps at 4 slots and 64-token chunks (row ladder 1, 20, 36, 68,
+#: 132, 256): a whole chunk (rung 68), two chunks (68), a chunk beside
+#: three decode rows (68), a chunk a slot (256), a tail chunk beside two
+#: decode rows (20), a decode-only step (rung 1), two chunks of 16 and a
+#: decode row (36)
+PACKED_SPANS = [[(0, 0, 64)], [(1, 0, 30), (2, 0, 9)],
+                [(0, 64, 1), (1, 30, 1), (2, 9, 1), (3, 0, 64)],
+                [(0, 65, 40), (1, 31, 40), (2, 10, 40), (3, 64, 40)],
+                [(0, 105, 1), (1, 71, 9), (2, 50, 1)],
+                [(0, 106, 1), (1, 80, 1), (2, 51, 1), (3, 104, 1)],
+                [(0, 107, 16), (1, 81, 16), (3, 105, 1)]]
+
+
+@pytest.mark.parametrize(
+    "arch,prec,width",
+    _cases(GRAPH_CASES[:1]) + _cases([SHARD_CASES[0], SHARD_CASES[2]], 2))
+def test_setup_keys_cover_every_rung_and_packed_steps_replay_as_eager(
+        cuda_device, arch, prec, width):
+    """A paged engine's keys are (rung, n_pp): capturing every rung of
+    the row ladder at each pages bucket up to 16, as the card benchmark's
+    set-up does, takes ``len(buckets)`` x those buckets of keys and
+    changes no cache byte; then packed steps of every rung replay those
+    graphs, with no capture, bit-equal to the eager engine's steps (every
+    shard's cache byte-equal, the same launches)."""
+    from repro_torch.kernels.ops import launch_counts
+    _, (eager, graphed), toks = _graph_pair(arch, prec, cuda_device, width)
+    assert graphed.buckets == (1, 20, 36, 68, 132, 256)
+    pages = [n for n in graphed.page_buckets if n <= 16]
+    before = _cache_bytes(graphed)
+    for n_pp in pages:
+        for rung in reversed(graphed.buckets):
+            graphed._capture(rung, n_pp)
+    torch.cuda.synchronize()
+    after = _cache_bytes(graphed)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    keys = len(graphed.buckets) * len(pages)
+    assert graphed.captures == len(graphed._graphs) == keys
+    counts = {}
+    for spans in PACKED_SPANS:
+        items = _items(toks, spans)
+        outs = []
+        for label, eng in (("eager", eager), ("graphed", graphed)):
+            start = launch_counts()
+            outs.append(eng.run_batch(items))
+            for k, n in launch_counts().items():
+                counts.setdefault(label, {}).setdefault(k, 0)
+                counts[label][k] += n - start[k]
+        assert sorted(outs[0]) == sorted(s for s, _, _ in spans)
+        for s in outs[0]:
+            assert np.array_equal(outs[0][s].view(np.uint32),
+                                  outs[1][s].view(np.uint32)), (spans, s)
+        ce, cg = _cache_bytes(eager), _cache_bytes(graphed)
+        for key in ce:
+            assert torch.equal(ce[key], cg[key]), (spans, key)
+    assert counts["eager"] == counts["graphed"]
+    assert graphed.captures == keys and graphed.replays == len(PACKED_SPANS)
+    assert graphed.rows_computed == eager.rows_computed == (
+        68 * 3 + 256 + 20 + 4 + 36)
+
+
 def test_handoff_across_widths_into_a_graphed_engine_steps_as_eager(
         cuda_device):
     """TP=2 -> TP=1 -> TP=2: a request exported by a graphed TP=2 engine,

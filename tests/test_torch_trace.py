@@ -22,6 +22,7 @@ from repro_torch.core.session import (  # noqa: E402
     InstanceState, MicroState, ServeSession, SessionConfig,
 )
 from repro_torch.engine import EngineBackend, InstanceEngine  # noqa: E402
+from repro_torch.engine.runner import bucket_of  # noqa: E402
 from repro_torch.launch.serve import mini_trace  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.sim.policies import DynaServePolicy  # noqa: E402
@@ -145,9 +146,16 @@ def test_every_step_has_one_record_and_the_counters_agree(traced_run):
         s[5] for s in dispatched)
     engines = backend.engines.values()
     assert sum(e.rows_computed for e in engines) == sum(
-        r["n_slots"] * r["T"] for r in steps)
+        r["N"] for r in steps)
     assert sum(e.rows_real for e in engines) == sum(r["rows"] for r in steps)
     for r in steps:
+        eng = backend.engines[r["iid"]]
+        # a paged step computes its rung's rows: n_slots on the decode
+        # rung (T == 1), else a rung of the row ladder that holds them
+        if r["T"] == 1:
+            assert r["N"] == r["n_slots"] >= r["rows"]
+        else:
+            assert r["N"] in eng.buckets[1:] and r["N"] >= r["rows"]
         assert r["rows"] == r["prefill"] + r["decode"] > 0
         assert r["T"] >= 1 and r["n_slots"] == 8 and r["n_pp"] >= 1
         assert r["predicted_s"] > 0 and 0 < r["device_s"] <= r["host_s"]
@@ -296,5 +304,8 @@ def test_an_engine_with_tracing_off_keeps_no_record(model):
                                            0, True)])
     assert handle.record is None and handle.start is None
     eng.collect_batch(handle)
-    assert (eng.rows_computed, eng.rows_real, eng.iterations) == (16, 5, 1)
+    # a 5-token chunk: the least rung of the row ladder past the
+    # decode-only one, 16 + 2 rows at 2 slots
+    assert eng.buckets[1] == bucket_of(5, eng.buckets[1:]) == 18
+    assert (eng.rows_computed, eng.rows_real, eng.iterations) == (18, 5, 1)
     assert trace.take()["spans"] == []
