@@ -67,7 +67,7 @@ exits non-zero without the final result line:
              plain attention (logits within ``model_tol``); (d) full width
              and 6 of 96 layers (60.32 GB of weights) serving the serve
              phase's 8 requests through DynaServe (counted; every prefill
-             launch on the wgmma body) and colocation.
+             launch on the wgmma or the packed-row body) and colocation.
 7. moe     — Qwen3-30B-A3B: (a) one MoE layer at full width in f32, card
              against CPU on the same weights (identical routing but for
              counted near-ties); (b) two layers at full width in bf16,
@@ -162,7 +162,12 @@ and the scans apart where the step is eager, and the device's idle
 share).  ``--phases tf32_one_pass`` builds a copy of
 the prefill source whose 3xTF32 products keep only hi.hi (one TF32 pass)
 and shows that f32 prefill's 3e-5 bound fails it while the real build
-keeps within it.
+keeps within it.  ``--phases packed`` checks the prefill kernel's
+packed-row body (a packed step's rows over the page pool through the
+block tables) against the plain version at the serving head layouts and
+times it at the card benchmark's mixed step, beside its bound and the
+scatter + gather + wgmma path it replaces, and on decode rows beside the
+paged-decode kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit and the one before that the
@@ -184,7 +189,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "model", "graphs", "serve", "nemotron", "moe", "http",
           "tp",
           "launch", "dense", "train", "dryrun", "examples")  # default
-EXTRA_PHASES = ("profile", "tf32_one_pass")  # only when asked for
+EXTRA_PHASES = ("profile", "tf32_one_pass", "packed")  # only when asked for
 
 # Published H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is
 # the larger of its bytes over HBM bandwidth and its flops over the dense
@@ -734,7 +739,7 @@ def log_kernel_checks(kc, note=""):
 PROFILE_TRIES = 3
 
 
-def device_ms(fn, n: int) -> tuple:
+def device_ms(fn, n: int, split: dict | None = None) -> tuple:
     """Device time of one call of ``fn`` and what timed it: the summed
     duration of every kernel that ``n`` calls launch (both passes of
     split-KV decode), over ``n``, from torch.profiler's CUDA activity,
@@ -744,7 +749,8 @@ def device_ms(fn, n: int) -> tuple:
     has lost some and is taken again.  Where ``PROFILE_TRIES`` captures
     all fail so, the CUDA-event time of ``n`` calls in its place (the
     kernels and the gaps between them), said so on the log and in the
-    second value."""
+    second value.  ``split``, where given, receives the device ms a call
+    by kernel name (the sound capture's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -763,6 +769,12 @@ def device_ms(fn, n: int) -> tuple:
         kern = [ev for ev in prof.events()
                 if ev.device_type == torch.autograd.DeviceType.CUDA]
         if kern and len(kern) % n == 0:
+            for ev in kern if split is not None else ():
+                name = ev.name.removeprefix("void ").removeprefix(
+                    "(anonymous namespace)::")
+                name = name.split("<")[0].split("(")[0].split("::")[-1]
+                split[name] = (split.get(name, 0.0)
+                               + ev.time_range.elapsed_us() / n / 1e3)
             return (sum(ev.time_range.elapsed_us() for ev in kern) / n / 1e3,
                     "torch.profiler")
         log(f"[timing] torch.profiler recorded {len(kern)} kernels for {n} "
@@ -1064,6 +1076,51 @@ def time_hd32_bodies(seed: int, H: int = 32, KV: int = 8):
 TF32_CROSS_TERMS = "  mma(d, al, bh0, bh1);\n  mma(d, ah, bl0, bl1);\n"
 
 
+def build_variants(name: str, edits: dict) -> dict:
+    """Patched copies of the kernel source ``name``, built in parallel
+    under ``build/<tag>/``: ``edits`` maps a tag to (old, new) pairs, each
+    ``old`` found exactly once in the source.  Returns tag -> the loaded
+    library, and the seconds the builds took."""
+    import ctypes
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    procs = {}
+    t0 = time.monotonic()
+    for tag, pairs in edits.items():
+        text = src
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise AssertionError(f"{tag}: {old!r} is not found exactly "
+                                     f"once in {name}.cu")
+            text = text.replace(old, new)
+        out_dir = _build.build_dir() / tag
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"{name}.cu").write_text(text)
+        procs[tag] = (out_dir / f"{name}.so", subprocess.Popen(
+            [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
+             "-o", str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for tag, (so, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag}: nvcc failed: {err[-2000:]}")
+        libs[tag] = ctypes.CDLL(str(so))
+    return libs, time.monotonic() - t0
+
+
+@contextlib.contextmanager
+def kernel_library(name: str, lib):
+    """Calls of the kernel ``name`` go to ``lib`` inside the block."""
+    from repro_torch.kernels import _build
+    real = _build.load(name)
+    _build._libs[name] = lib
+    try:
+        yield
+    finally:
+        _build._libs[name] = real
+
+
 def run_tf32_one_pass(seed: int):
     """The f32 prefill bound (``PREFILL_TOL``) tells three TF32 passes
     from one.  A copy of the prefill source without the cross terms of its
@@ -1073,26 +1130,12 @@ def run_tf32_one_pass(seed: int):
     smoke layout at the timing shapes.  Fails unless the real build keeps
     every case within the bound and the one-pass copy exceeds it in
     every case."""
-    import ctypes
-    import subprocess
     import torch
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import chunked_prefill_attention as cpa
     name = "chunked_prefill_attention"
-    src = (_build.CSRC / f"{name}.cu").read_text()
-    if src.count(TF32_CROSS_TERMS) != 1:
-        raise AssertionError("tf32_one_pass: the cross terms of mma3 are "
-                             "not where this phase looks for them")
-    out_dir = _build.build_dir() / "tf32_one_pass"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"{name}.cu").write_text(src.replace(TF32_CROSS_TERMS, ""))
-    t0 = time.monotonic()
-    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS,
-                    *_build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
-                    str(out_dir / f"{name}.cu")], check=True,
-                   capture_output=True, text=True)
-    one_pass = ctypes.CDLL(str(out_dir / f"{name}.so"))
-    built = time.monotonic() - t0
+    libs, built = build_variants(
+        name, {"tf32_one_pass": [(TF32_CROSS_TERMS, "")]})
     real = _build.load(name)
     g = torch.Generator(device="cuda").manual_seed(seed)
     gc_ = torch.Generator().manual_seed(seed)
@@ -1108,12 +1151,9 @@ def run_tf32_one_pass(seed: int):
             torch.int32).cuda()
         exp = ref.chunked_prefill_attention_ref(q, k, v, off)
         errs = []
-        for lib in (real, one_pass):
-            _build._libs[name] = lib
-            try:
+        for lib in (real, libs["tf32_one_pass"]):
+            with kernel_library(name, lib):
                 got = cpa.chunked_prefill_attention(q, k, v, off)
-            finally:
-                _build._libs[name] = real
             torch.cuda.synchronize()
             errs.append(float((got - exp).abs().max()))
         rows.append((f"B{B} Tq{Tq} S{S} H{H} KV{KV} hd{hd}", *errs))
@@ -1126,6 +1166,207 @@ def run_tf32_one_pass(seed: int):
                              f"three passes from one: {rows}")
     log(f"[tf32_one_pass] the one-pass copy exceeds {tol} in {over} of "
         f"{len(rows)} cases; the 3xTF32 build keeps every case within it")
+
+
+# ---------------------------------------------------------------------------
+# The prefill kernel's packed-row body: checks (kernels phase), planted
+# faults and times (--phases packed)
+# ---------------------------------------------------------------------------
+#: head layouts the packed-row body is checked at: (label, H, KV, hd)
+PACKED_LAYOUTS = (("qwen2.5-14b", 40, 8, 128), (MOE_PATH, 32, 4, 128),
+                  ("qwen2.5-14b tp2 shard", 20, 4, 128),
+                  (NEMOTRON_PATH, 96, 8, 192), ("smoke layout in bf16", 8, 2,
+                                                 32))
+#: the card benchmark's mixed step: a 512-token chunk at the cell's mean
+#: offset beside decode rows at its contexts (2,000-4,600 tokens), in the
+#: rung of 520 rows; (n_pp, [(slot, first position, tokens), ...])
+PACKED_STEPS = ((512, [(0, 768, 512), (1, 2300, 1), (2, 3900, 1)]),
+                (1024, [(0, 768, 512), (1, 2300, 1), (2, 4600, 1)]))
+#: faults planted in copies of the prefill source, each of which the
+#: packed-row check must catch: tag -> (old, new) edits
+PACKED_FAULTS = {
+    # the merge adds the spans' outputs without their 2^(m_s - M) weights
+    "packed_fault_merge_weight": [(
+        "const float f = ex2(ml[s].x - mx);", "const float f = 1.f;")],
+    # the merge leaves out a split row's last span (its newest keys)
+    "packed_fault_last_span": [(
+        "if (s < ns) {\n        const float f = ex2(",
+        "if (s + 1 < ns) {\n        const float f = ex2(")],
+    # the causal frontier one key short: a row does not see its own key
+    "packed_fault_frontier": [
+        ("\n          x0 = (key <= qpos0 && key < kv_end)",
+         "\n          x0 = (key < qpos0 && key < kv_end)"),
+        ("\n          x1 = (key <= qpos1 && key < kv_end)",
+         "\n          x1 = (key < qpos1 && key < kv_end)")],
+}
+
+
+def packed_helpers():
+    """The card tests' packed-step builder and per-slot check, which this
+    script shares: ``tests/test_torch_gpu.py`` loaded by its path (an
+    installed package named ``tests`` may shadow the repo's)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", ROOT / "tests" / "test_torch_gpu.py")
+    t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t)
+    return t.mixed_items, t.packed_problem, t.packed_errors, t.PACKED_ULP
+
+
+def run_packed_checks(seed: int):
+    """The packed-row body (a packed step's rows over the page pool
+    through the block tables) against the plain version of each slot's
+    attention at the serving head layouts: a 512-token chunk beside 1, 4
+    and 7 long-context decode rows, tables of 512 and 1024 pages (256 at
+    hd 192), each slot within ``PACKED_ULP`` of its largest output plus
+    one bf16 ulp of each (the card tests' bound), pad rows zeros."""
+    import torch
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    mixed_items, packed_problem, packed_errors, ulp = packed_helpers()
+    t0 = time.monotonic()
+    worst, share, n_slots = 0.0, 0.0, 0
+    for i, (label, H, KV, hd) in enumerate(PACKED_LAYOUTS):
+        for n_pp in ((256,) if hd > 128 else (512, 1024)):
+            for n_dec in (1, 4, 7):
+                q, kp, vp, tbl, slots, items, rows = packed_problem(
+                    "cuda", H, KV, hd, n_pp, mixed_items(n_pp, n_dec),
+                    seed=seed + i)
+                got = cpa.packed_prefill_attention(q, kp, vp, tbl, slots)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()) or bool(
+                        got[rows:].any()):
+                    raise AssertionError(f"packed {label}: non-finite "
+                                         f"output or a pad row not zero")
+                errs = packed_errors(got, q, kp, vp, tbl, items)
+                for (b, off, n), (err, sh) in zip(items, errs):
+                    if not sh <= 1.0:
+                        raise AssertionError(
+                            f"packed {label} n_pp {n_pp} slot {b} ({n} "
+                            f"rows at {off}): max abs err {err:.3e}, "
+                            f"{sh:.2f} of the bound")
+                worst = max(worst, max(e for e, _ in errs))
+                share = max(share, max(sh for _, sh in errs))
+                n_slots += len(errs)
+                del q, kp, vp, got
+    torch.cuda.empty_cache()
+    log(f"[kernels] packed-row body: {n_slots} slots within {ulp:.4g} "
+        f"(max |expected| of the slot + |expected|) at "
+        f"{', '.join(l for l, *_ in PACKED_LAYOUTS)}: max abs err "
+        f"{worst:.3e}, at most {share:.3f} of the bound; pad rows zeros "
+        f"({time.monotonic() - t0:.1f} s)")
+
+
+def run_packed(seed: int, card: str):
+    """The packed-row body's check catches planted faults, and its times:
+    (a) three copies of the prefill source, each with one fault
+    (``PACKED_FAULTS``), and the real build with one block-table entry of
+    each slot's last page pointing at an unused page (a lost page), run
+    on the cell's layout beside 7 decode rows: each fault must put a slot
+    over the bound that the real build keeps; (b) timed at the card
+    benchmark's mixed step beside its bound (the yardstick's) and beside
+    the path for the same rows without the body (the scatter to (8, 512),
+    the pages gathered, the wgmma body, the rows gathered back), in
+    turns; (c) decode rows alone against ``paged_decode_attention`` on
+    the same rows."""
+    import torch
+    from cardbench.yardstick import prefill_attention_call
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    mixed_items, packed_problem, packed_errors, _ = packed_helpers()
+    t0 = time.monotonic()
+    name = "chunked_prefill_attention"
+    libs, built = build_variants(name, PACKED_FAULTS)
+    H, KV, hd, n_pp = 40, 8, 128, 512
+    q, kp, vp, tbl, slots, items, _ = packed_problem(
+        "cuda", H, KV, hd, n_pp, mixed_items(n_pp, 7), seed=seed)
+    lost = tbl.clone()
+    for b, off, n in items:
+        lost[b, (off + n - 1) // 8] = kp.shape[0] - 1   # never in a table
+    runs = {"real build": (_build.load(name), tbl)}
+    runs.update({tag: (lib, tbl) for tag, lib in libs.items()})
+    runs["real build, a lost page"] = (_build.load(name), lost)
+    shares = {}
+    for tag, (lib, table) in runs.items():
+        with kernel_library(name, lib):
+            got = cpa.packed_prefill_attention(q, kp, vp, table, slots)
+        torch.cuda.synchronize()
+        shares[tag] = [sh for _, sh in packed_errors(got, q, kp, vp, tbl,
+                                                     items)]
+    log(f"[packed] planted faults (fault copies built in {built:.1f} s), "
+        f"each slot's largest share of the bound, slots {[b for b, *_ in items]}: "
+        + "; ".join(f"{tag}: " + ", ".join(f"{x:.3g}" for x in sh)
+                    for tag, sh in shares.items()))
+    missed = [tag for tag, sh in shares.items()
+              if tag != "real build" and max(sh) <= 1.0]
+    if max(shares["real build"]) > 1.0 or missed:
+        raise AssertionError(f"packed: the bound does not tell the real "
+                             f"build from a faulty one: {missed or shares}")
+    del q, kp, vp
+    torch.cuda.empty_cache()
+    for n_pp, items in PACKED_STEPS:
+        q, kp, vp, tbl, slots, items, _ = packed_problem(
+            "cuda", H, KV, hd, n_pp, items, seed=seed)
+        before = dict(cpa.body_launches)
+
+        def t_packed():
+            return cpa.packed_prefill_attention(q, kp, vp, tbl, slots)
+
+        def t_gather():
+            return ops.packed_prefill_by_scatter(q, kp, vp, tbl, slots, 512)
+
+        t = in_turns({"packed": t_packed, "gather": t_gather}, 20)
+        took = {b: n - before[b] for b, n in cpa.body_launches.items()
+                if n != before[b]}
+        real = [(n, off) for _, off, n in items]
+        b = bound(*prefill_attention_call(real, H, KV, hd))
+        split = {k: {} for k in ("packed", "gather")}
+        device_ms(t_packed, 20, split["packed"])
+        device_ms(t_gather, 20, split["gather"])
+        # device time: a loop of wrapper calls is host-bound here (three
+        # tensor maps encoded a call), which a graph's replay never is
+        (_, dev, how), (_, gdev, ghow) = t["packed"], t["gather"]
+        log(f"[time] packed-row body, qwen2.5-14b mixed step (H {H} / KV "
+            f"{KV} / hd {hd}, page 8, n_pp {n_pp}, rows (tokens, first "
+            f"position) {real} in the rung of 520): device {dev:.4f} ms "
+            f"({how}), events {t['packed'][0]:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bound_ms'] / dev:.3f}"
+            f" of it on the device; the scatter + gather + wgmma path: device "
+            f"{gdev:.4f} ms ({ghow}), events {t['gather'][0]:.4f} ms, "
+            f"{b['bound_ms'] / gdev:.3f} of the bound; gather path / packed "
+            f"{gdev / dev:.2f}x; launches by body {took}; device ms by "
+            f"kernel: " + "; ".join(
+                f"{k} " + ", ".join(f"{n} {ms:.4f}" for n, ms in v.items())
+                for k, v in split.items()))
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    # decode rows alone: the packed body's cost of a decode row against
+    # the paged-decode kernel's on the same rows
+    n_pp = 1024
+    ctx = [2300 + 330 * i for i in range(7)]
+    q, kp, vp, tbl, slots, _, _ = packed_problem(
+        "cuda", H, KV, hd, n_pp, [(b, c - 1, 1) for b, c in enumerate(ctx)],
+        N=24, seed=seed)
+    lens = torch.tensor(ctx + [0], dtype=torch.int32, device="cuda")
+    qd = torch.zeros(8, H, hd, dtype=torch.bfloat16, device="cuda")
+    qd[:7] = q[:7]
+
+    def t_packed():
+        return cpa.packed_prefill_attention(q, kp, vp, tbl, slots)
+
+    t = in_turns({
+        "packed": t_packed,
+        "decode": lambda: paged_decode_attention(qd, kp, vp, tbl, lens)}, 50)
+    (_, dev, how), (_, ddev, dhow) = t["packed"], t["decode"]
+    split = {}
+    device_ms(t_packed, 50, split)
+    log(f"[time] packed-row body, 7 decode rows alone (contexts {ctx}, "
+        f"n_pp {n_pp}): device {dev:.4f} ms ({how}); paged_decode_attention "
+        f"on the same rows {ddev:.4f} ms ({dhow}); packed / decode "
+        f"{dev / ddev:.2f}x; device ms by kernel: "
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in split.items()))
+    log(f"[packed] phase wall {time.monotonic() - t0:.1f} s; card {card}")
 
 
 def bound(n_bytes: float, flops: float,
@@ -1144,16 +1385,24 @@ def plain_attention():
     """Route the model's attention through the plain versions on the card
     (for comparison only; the port itself never does this)."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import gather_pages, gather_scales
     from repro_torch.models import mixers
+
+    def paged_prefill(q, kp, vp, tbl, offsets, ks=None, vs=None):
+        return ref.chunked_prefill_attention_ref(
+            q, gather_pages(kp, tbl), gather_pages(vp, tbl), offsets,
+            None if ks is None else gather_scales(ks, tbl),
+            None if vs is None else gather_scales(vs, tbl))
+
     saved = (mixers.paged_decode_attention_op,
-             mixers.chunked_prefill_attention_op)
+             mixers.paged_prefill_attention_op)
     mixers.paged_decode_attention_op = ref.paged_decode_attention_ref
-    mixers.chunked_prefill_attention_op = ref.chunked_prefill_attention_ref
+    mixers.paged_prefill_attention_op = paged_prefill
     try:
         yield
     finally:
         (mixers.paged_decode_attention_op,
-         mixers.chunked_prefill_attention_op) = saved
+         mixers.paged_prefill_attention_op) = saved
 
 
 def model_steps(params, cfg, device, seed: int, page: int = 8, feed=None):
@@ -1337,7 +1586,8 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
     """Serve through DynaServe (a main path) with the kernels' launch
     counters zeroed just before and read just after.  Fails without a KV
     handoff, and on the card when a kernel was not launched or a prefill
-    launch missed the ``wgmma`` body.  Returns (token streams, launches
+    launch missed the ``wgmma`` and packed-row bodies.  Returns (token
+    streams, launches
     by kernel, the run's peak allocated device bytes)."""
     import torch
     from repro_torch.kernels import chunked_prefill_attention as cpa
@@ -1346,7 +1596,7 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
         torch.cuda.reset_peak_memory_stats()
     pda.launches = 0
     cpa.launches = 0
-    cpa.body_launches = dict.fromkeys(cpa.BODIES, 0)
+    cpa.body_launches = dict.fromkeys(cpa.COUNTED, 0)
     with step_tally() as tally:
         outs, m, moved, wall = serve(cfg, params, reqs, "dynaserve",
                                      **sizes)
@@ -1377,9 +1627,9 @@ def serve_counted(cfg, params, reqs, card: str, device: str, label: str,
             if n <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{cfg.name} path")
-        if bodies["wgmma"] != cpa.launches:
+        if bodies["wgmma"] + bodies["packed"] != cpa.launches:
             raise AssertionError(f"bf16 prefill launches that missed the "
-                                 f"wgmma body: {bodies}")
+                                 f"wgmma and packed-row bodies: {bodies}")
     return outs, launches, peak
 
 
@@ -1550,7 +1800,8 @@ def run_nemotron(seed: int, card: str):
     kernels against the plain attention on the same weights; (d) full
     width and ``NEMOTRON_LAYERS`` layers serving the serve phase's 8
     requests through DynaServe (counted: every prefill launch on the
-    wgmma body) and colocation.  Returns (max errors, times, launches)."""
+    wgmma or the packed-row body) and colocation.  Returns (max errors,
+    times, launches)."""
     import torch
     from repro_torch.configs import get_config
     t0 = time.monotonic()
@@ -1959,7 +2210,8 @@ def launches_by_heads(counts: dict):
     from repro_torch.models import mixers
     lock = threading.Lock()
     saved = (mixers.paged_decode_attention_op,
-             mixers.chunked_prefill_attention_op)
+             mixers.paged_prefill_attention_op,
+             mixers.packed_prefill_attention_op)
     cls = runner.InstanceEngine
     capture, replay = cls._capture, cls._replay
     captured, by_graph = {}, {}      # the running capture's; id(graph) ->
@@ -1993,13 +2245,14 @@ def launches_by_heads(counts: dict):
         return out
 
     mixers.paged_decode_attention_op = counted(KERNELS[0], saved[0])
-    mixers.chunked_prefill_attention_op = counted(KERNELS[1], saved[1])
+    mixers.paged_prefill_attention_op = counted(KERNELS[1], saved[1])
+    mixers.packed_prefill_attention_op = counted(KERNELS[1], saved[2])
     cls._capture, cls._replay = counted_capture, counted_replay
     try:
         yield counts
     finally:
-        (mixers.paged_decode_attention_op,
-         mixers.chunked_prefill_attention_op) = saved
+        (mixers.paged_decode_attention_op, mixers.paged_prefill_attention_op,
+         mixers.packed_prefill_attention_op) = saved
         cls._capture, cls._replay = capture, replay
 
 
@@ -3847,6 +4100,7 @@ def main(argv=None) -> int:
     prefill_rows = {}
     if "kernels" in phases:
         errs = run_kernel_checks(args.seed)
+        run_packed_checks(args.seed)
         times, moe_times, train_times, phi4_times = (
             time_kernels(args.seed, path, **layout)
             for path, layout in TIMED_PATHS.items())
@@ -3918,6 +4172,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "tf32_one_pass" in phases:
         run_tf32_one_pass(args.seed)
+    if "packed" in phases:
+        run_packed(args.seed, card)
     if "profile" in phases:
         from repro_torch.configs import get_config
         for name in ("qwen2.5-14b", MOE_PATH) + DENSE_PATHS:

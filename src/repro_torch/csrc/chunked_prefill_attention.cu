@@ -129,6 +129,24 @@
 //   and V's fragments are read in the same order.  Scales, masking (-1e30,
 //   l floored at 1e-30) and the causal frontier of each q tile are those of
 //   the other bodies.
+//
+// The packed-row body (packed_chunked_prefill_attention) replaces no TPU
+// kernel: the JAX engine scatters a mixed step's chunks into (B, T) and
+// gathers the pages, as this port did before it.  It serves a paged
+// engine's packed step (bf16 queries on an unscaled bf16 pool, hd <= 192):
+// the step's N query rows, slot after slot, each attending causally to
+// its own slot's keys, read a page at a time through the block table, so
+// no dense copy of the pages and no (slots x chunk) query buffer is made.
+// What bounds it: a mixed step is a 512-token chunk (operations) beside
+// decode rows at long contexts (bytes of their K/V).  Design (see
+// wg::packed_chunked_prefill_wgmma_kernel): the wgmma body's pipeline and
+// softmax; a CTA takes one KV head and up to 128 / qpk rows of one slot
+// with all their query heads as its 128 MMA rows, so a row reads its K/V
+// once for the group; a slot of one tile or less (a decode row) splits
+// its keys into up to 8 spans merged by a second kernel, which also
+// writes the rows of no slot as zeros.  The grid depends only on N, B
+// and the span count, as a CUDA graph needs; CTAs past the step's work
+// exit at once.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -921,6 +939,158 @@ __device__ __forceinline__ void codes_to_bf16(const uint4& raw, uint4& lo, uint4
   }
 }
 
+// The consumer warpgroup's loop over its K/V tiles, shared by
+// chunked_prefill_wgmma_kernel and packed_chunked_prefill_wgmma_kernel:
+// per tile `it` (keys k_lo + it * BK on), S = Q K^T, the online softmax,
+// O += P V, each product waited for before its registers are touched (S,
+// P and O live at once would not fit the 168 registers ptxas allots a
+// thread of a 384-thread CTA; the two warpgroups interleave on their
+// own).  P is packed once its V tile has landed (quantized pools: its V
+// scales arrive with it), and a K stage is released only after the
+// softmax has read its scales.  qa is this warpgroup's 64 rows of the
+// swizzled Q tile; qpos0 and qpos1 the positions of this thread's two
+// rows, qpos_min that of the warpgroup's first row; keys past a row's
+// position or at kv_end and beyond are masked.  ahead(it) runs at the top
+// of each step (the SELF body's loads).  On return o holds the rows'
+// unnormalised outputs, m their maxima (log2 domain) and l their sums,
+// reduced over the four threads of a row.
+template <typename T, int NSTG, bool QUANT, typename Ahead>
+__device__ __forceinline__ void consume_tiles(
+    float (&o)[T::HD / 2], float& m0, float& m1, float& l0, float& l1, uint32_t qa,
+    unsigned char* k_s, unsigned char* v_s, const float* ksc_s, const float* vsc_s,
+    uint64_t* k_full, uint64_t* v_full, uint64_t* k_empty, uint64_t* v_empty, int n_tiles,
+    int k_lo, int kv_end, int qpos0, int qpos1, int qpos_min, float scale_log2, Ahead ahead) {
+  constexpr int HD = T::HD, BK = T::BK;
+  constexpr int Q_PIECE = T::Q_PIECE, KV_PIECE = T::KV_PIECE, KV_BYTES = T::KV_BYTES;
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  m0 = NEG_INF;
+  m1 = NEG_INF;
+  l0 = 0.f;
+  l1 = 0.f;
+
+  // S = Q K^T of tile `it` into sc: HD/16 k-steps of 16 over NP swizzled pieces
+  auto issue_s = [&](int it) {
+    const uint32_t ka = smem_u32(k_s + (it % NSTG) * KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<BK>(sc, desc_sw128(qa + (kk >> 2) * Q_PIECE + (kk & 3) * 32, 16, 1024),
+                   desc_sw128(ka + (kk >> 2) * KV_PIECE + (kk & 3) * 32, 16, 1024), kk > 0);
+    wg_commit();
+  };
+  // O += P V of tile `it`: P from registers, V transposed through the descriptor
+  auto issue_pv = [&](int it) {
+    const uint32_t va = smem_u32(v_s + (it % NSTG) * KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<HD>(o, pa[kk], desc_sw128(va + kk * 16 * 128, KV_PIECE, 1024));
+    wg_commit();
+  };
+  // online softmax of tile `it` in the log2 domain (masked scores -1e30;
+  // quantized pools: K scale on the f32 scores): P stays in sc as f32, l
+  // is updated, and the factor that rescales O from the old maximum to
+  // the new one is returned per row
+  auto softmax = [&](int it, float& a0, float& a1) {
+    const int k0 = k_lo + it * BK;
+    const bool edge = k0 + BK - 1 > qpos_min || k0 + BK > kv_end;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + tig * 2 + e, key = k0 + col;
+        float f = scale_log2;
+        if constexpr (QUANT) f *= ksc_s[(it % NSTG) * BK + col];
+        float x0 = sc[j * 4 + e] * f, x1 = sc[j * 4 + 2 + e] * f;
+        if (edge) {
+          x0 = (key <= qpos0 && key < kv_end) ? x0 : NEG_INF;
+          x1 = (key <= qpos1 && key < kv_end) ? x1 : NEG_INF;
+        }
+        sc[j * 4 + e] = x0;
+        sc[j * 4 + 2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    a0 = ex2(m0 - mx0);
+    a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+    // a masked score minus a live row's maximum is about -1e30, whose
+    // exp2 is 0; a row with no live score yet subtracts 0 instead
+    const float s0 = mx0 <= 0.5f * NEG_INF ? 0.f : mx0;
+    const float s1 = mx1 <= 0.5f * NEG_INF ? 0.f : mx1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(sc[j * 4 + e] - (e < 2 ? s0 : s1));
+        sc[j * 4 + e] = p;
+        if (e < 2) l0 += p; else l1 += p;
+      }
+  };
+  // P of tile `it` (quantized pools: times the V scale) as bf16 A fragments
+  auto pack_p = [&](int it) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float f0 = 1.f, f1 = 1.f;
+      if constexpr (QUANT) {
+        const float* vss = vsc_s + (it % NSTG) * BK;
+        f0 = vss[j * 8 + tig * 2];
+        f1 = vss[j * 8 + tig * 2 + 1];
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_f(sc[j * 4] * f0, sc[j * 4 + 1] * f1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_f(sc[j * 4 + 2] * f0, sc[j * 4 + 3] * f1);
+    }
+  };
+  auto rescale_o = [&](float a0, float a1) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j * 4] *= a0;
+      o[j * 4 + 1] *= a0;
+      o[j * 4 + 2] *= a1;
+      o[j * 4 + 3] *= a1;
+    }
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % NSTG, ph = (it / NSTG) & 1;
+    float a0, a1;
+    ahead(it);
+    mbar_wait(&k_full[st], ph);
+    pin(sc);
+    wg_fence();
+    issue_s(it);
+    wg_wait<0>();
+    pin(sc);
+    softmax(it, a0, a1);
+    if (lane == 0) mbar_arrive(&k_empty[st]);
+    rescale_o(a0, a1);
+    mbar_wait(&v_full[st], ph);
+    pack_p(it);
+    pin(o);
+    wg_fence();
+    issue_pv(it);
+    wg_wait<0>();
+    pin(o);
+    pin(pa);
+    if (lane == 0) mbar_arrive(&v_empty[st]);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+}
+
 // TKV is the pool's element type: bf16 tiles go by TMA straight into the
 // swizzled operand tiles; fp8 or int8 codes go by TMA into a staging tile
 // and warps 1-3 of the producer warpgroup convert them into the operand
@@ -1084,111 +1254,10 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qpos0 = off + q0 + r0, qpos1 = qpos0 + 8;
     const int qpos_min = off + q0 + c * 64;             // first row of this warpgroup
 
-    float o[HD / 2], sc[BK / 2];
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-    const uint32_t qa = smem_u32(q_s) + c * 64 * 128;
-
-    // S = Q K^T of tile `it` into sc: HD/16 k-steps of 16 over NP swizzled pieces
-    auto issue_s = [&](int it) {
-      const uint32_t ka = smem_u32(k_s + (it % NSTG) * KV_BYTES);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss<BK>(sc, desc_sw128(qa + (kk >> 2) * Q_PIECE + (kk & 3) * 32, 16, 1024),
-                     desc_sw128(ka + (kk >> 2) * KV_PIECE + (kk & 3) * 32, 16, 1024), kk > 0);
-      wg_commit();
-    };
-    // O += P V of tile `it`: P from registers, V transposed through the descriptor
-    auto issue_pv = [&](int it) {
-      const uint32_t va = smem_u32(v_s + (it % NSTG) * KV_BYTES);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<HD>(o, pa[kk], desc_sw128(va + kk * 16 * 128, KV_PIECE, 1024));
-      wg_commit();
-    };
-    // online softmax of tile `it` in the log2 domain (masked scores -1e30;
-    // quantized pools: K scale on the f32 scores): P stays in sc as f32, l
-    // is updated, and the factor that rescales O from the old maximum to
-    // the new one is returned per row
-    auto softmax = [&](int it, float& a0, float& a1) {
-      const int k0 = it * BK;
-      const float* kss = ksc_s + (it % NSTG) * BK;
-      const bool edge = k0 + BK - 1 > qpos_min || k0 + BK > kv_end;
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = j * 8 + tig * 2 + e, key = k0 + col;
-          const float f = QUANT ? scale_log2 * kss[col] : scale_log2;
-          float x0 = sc[j * 4 + e] * f, x1 = sc[j * 4 + 2 + e] * f;
-          if (edge) {
-            x0 = (key <= qpos0 && key < kv_end) ? x0 : NEG_INF;
-            x1 = (key <= qpos1 && key < kv_end) ? x1 : NEG_INF;
-          }
-          sc[j * 4 + e] = x0;
-          sc[j * 4 + 2 + e] = x1;
-          mx0 = fmaxf(mx0, x0);
-          mx1 = fmaxf(mx1, x1);
-        }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      a0 = ex2(m0 - mx0);
-      a1 = ex2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= a0;
-      l1 *= a1;
-      // a masked score minus a live row's maximum is about -1e30, whose
-      // exp2 is 0; a row with no live score yet subtracts 0 instead
-      const float s0 = mx0 <= 0.5f * NEG_INF ? 0.f : mx0;
-      const float s1 = mx1 <= 0.5f * NEG_INF ? 0.f : mx1;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex2(sc[j * 4 + e] - (e < 2 ? s0 : s1));
-          sc[j * 4 + e] = p;
-          if (e < 2) l0 += p; else l1 += p;
-        }
-    };
-    // P of tile `it` (quantized pools: times the V scale) as bf16 A fragments
-    auto pack_p = [&](int it) {
-      const float* vss = vsc_s + (it % NSTG) * BK;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        float f0 = 1.f, f1 = 1.f;
-        if constexpr (QUANT) {
-          f0 = vss[j * 8 + tig * 2];
-          f1 = vss[j * 8 + tig * 2 + 1];
-        }
-        pa[j >> 1][(j & 1) * 2] = pack_f(sc[j * 4] * f0, sc[j * 4 + 1] * f1);
-        pa[j >> 1][(j & 1) * 2 + 1] = pack_f(sc[j * 4 + 2] * f0, sc[j * 4 + 3] * f1);
-      }
-    };
-    auto rescale_o = [&](float a0, float a1) {
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        o[j * 4] *= a0;
-        o[j * 4 + 1] *= a0;
-        o[j * 4 + 2] *= a1;
-        o[j * 4 + 3] *= a1;
-      }
-    };
-
-    // Per tile: S = Q K^T, softmax, O += P V, each product waited for
-    // before its registers are touched (S, P and O live at once would
-    // not fit the 168 registers ptxas allots a thread of this CTA; the
-    // two warpgroups interleave on their own).  P is packed once its V
-    // tile has landed (quantized pools: its V scales arrive with it), and
-    // a K stage is released only after the softmax has read its scales.
+    float o[HD / 2], m0, m1, l0, l1;
     // SELF: thread 0 loads Q and the first NSTG tiles, then, at the top of
     // each step, the tile NSTG - 1 ahead into the stage both warpgroups
-    // have just released.
+    // have just released
     if constexpr (T::SELF) {
       if (threadIdx.x == 0) {
         load_q();
@@ -1196,36 +1265,14 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
     mbar_wait(q_full, 0);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % NSTG, ph = (it / NSTG) & 1;
-      float a0, a1;
-      if constexpr (T::SELF) {
-        if (threadIdx.x == 0 && it > 0 && it + NSTG - 1 < n_tiles) load_tile(it + NSTG - 1);
-      }
-      mbar_wait(&k_full[st], ph);
-      pin(sc);
-      wg_fence();
-      issue_s(it);
-      wg_wait<0>();
-      pin(sc);
-      softmax(it, a0, a1);
-      if (lane == 0) mbar_arrive(&k_empty[st]);
-      rescale_o(a0, a1);
-      mbar_wait(&v_full[st], ph);
-      pack_p(it);
-      pin(o);
-      wg_fence();
-      issue_pv(it);
-      wg_wait<0>();
-      pin(o);
-      pin(pa);
-      if (lane == 0) mbar_arrive(&v_empty[st]);
-    }
-
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    consume_tiles<T, NSTG, QUANT>(
+        o, m0, m1, l0, l1, smem_u32(q_s) + c * 64 * 128, k_s, v_s, ksc_s, vsc_s, k_full,
+        v_full, k_empty, v_empty, n_tiles, 0, kv_end, qpos0, qpos1, qpos_min, scale_log2,
+        [&](int it) {
+          if constexpr (T::SELF) {
+            if (threadIdx.x == 0 && it > 0 && it + NSTG - 1 < n_tiles) load_tile(it + NSTG - 1);
+          }
+        });
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
     const int t0 = q0 + r0, t1 = t0 + 8;
 #pragma unroll
@@ -1242,6 +1289,327 @@ chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// A packed step's query rows over the page pool (packed_chunked_prefill_*)
+// ---------------------------------------------------------------------------
+// A paged engine's mixed step packs its tokens into N rows, slot by slot:
+// slot b holds n_b = active[b] ? n_valid[b] : 0 consecutive rows ending at
+// row last[b], at positions pos_offset[b] .. pos_offset[b] + n_b - 1.
+// slots is the (4, B) int32 array of those rows.  A work tile is up to R
+// consecutive rows of one slot, all qpk query heads of one KV head: MMA
+// row i * qpk + g is the tile's row i at query head kvh * qpk + g (the
+// layout a 3-D TMA box of (64 columns, qpk heads, R rows) writes), so R =
+// 128 / qpk rows fill the CTA's 128 MMA rows and K/V is read once for the
+// whole group.  A slot of more than R rows runs one work item a tile, its
+// last tile (the most keys) first.  A slot of at most R rows (a decode
+// row, a tail chunk) splits its keys into up to NSPLIT spans of whole
+// key tiles, each a work item that writes its unnormalised (O, m, l) to
+// scratch, and the merge pass weighs the spans together, so a long
+// context is read by NSPLIT CTAs at once instead of one; a warpgroup
+// whose MMA rows hold no query (the second, for a slot of 64 or fewer)
+// skips its products.  Work items are enumerated on the device from the
+// per-slot arrays, so the grid depends only on N, B and NSPLIT (a CUDA
+// graph's key), and CTAs past the step's items exit at once.
+constexpr int PACKED_ROWS = 128;   // MMA rows of a CTA: two consumer warpgroups
+
+struct Work {
+  int b, row0, nrows, pos0, k_lo, k_hi, split, nsplit;
+};
+
+__device__ __forceinline__ int slot_rows(const int* slots, int B, int b) {
+  return slots[2 * B + b] ? slots[B + b] : 0;
+}
+
+// the key tiles a span of a split slot takes, and the number of spans, for
+// `frontier` keys
+__device__ __forceinline__ void split_keys(int frontier, int bk, int nsplit, int& tps,
+                                           int& ns) {
+  const int nk = (frontier + bk - 1) / bk;
+  const int want = min(nsplit, nk);
+  tps = (nk + want - 1) / want;
+  ns = (nk + tps - 1) / tps;
+}
+
+// work item `idx` of the step: the tiles of slots of more than R rows,
+// then the spans of the others; false past the last item
+__device__ bool find_work(int idx, const int* slots, int B, int R, int bk, int nsplit,
+                          Work& w) {
+  for (int b = 0; b < B; ++b) {
+    const int n = slot_rows(slots, B, b);
+    if (n <= R) continue;
+    const int nt = (n + R - 1) / R;
+    if (idx < nt) {
+      const int j = nt - 1 - idx;
+      w.b = b;
+      w.row0 = slots[3 * B + b] - n + 1 + j * R;
+      w.nrows = min(R, n - j * R);
+      w.pos0 = slots[b] + j * R;
+      w.k_lo = 0;
+      w.k_hi = w.pos0 + w.nrows;
+      w.split = 0;
+      w.nsplit = 1;
+      return true;
+    }
+    idx -= nt;
+  }
+  for (int b = 0; b < B; ++b) {
+    const int n = slot_rows(slots, B, b);
+    if (n == 0 || n > R) continue;
+    const int frontier = slots[b] + n;
+    int tps, ns;
+    split_keys(frontier, bk, nsplit, tps, ns);
+    if (idx < ns) {
+      w.b = b;
+      w.row0 = slots[3 * B + b] - n + 1;
+      w.nrows = n;
+      w.pos0 = slots[b];
+      w.k_lo = idx * tps * bk;
+      w.k_hi = min(frontier, w.k_lo + tps * bk);
+      w.split = idx;
+      w.nsplit = ns;
+      return true;
+    }
+    idx -= ns;
+  }
+  return false;
+}
+
+// The pipeline is that of chunked_prefill_wgmma_kernel (bf16 pools, three
+// warpgroups), and the consumers run the same loop (consume_tiles).  What
+// differs: the Q tile is one box a 64-column piece (qpk heads x R rows
+// of the packed q); the K and V tiles come a page at a time, one
+// 4-D box (64 columns, 1 head, page rows, 1 page) a page and piece,
+// through the slot's block-table row, issued by the 32 lanes of the
+// producer warp (one box a lane: BK / page pages x NP pieces <= 32); and
+// each MMA row carries its own position.
+template <int NSTG, typename T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+packed_chunked_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const int* __restrict__ slots,
+                                    const int* __restrict__ tables,
+                                    __nv_bfloat16* __restrict__ out,
+                                    float* __restrict__ part_o, float* __restrict__ part_ml,
+                                    int H, int KV, int hd, int B, int n_pp, int n_pages,
+                                    int page, int R, int nsplit, float scale_log2) {
+  constexpr int HD = T::HD, BK = T::BK, NP = T::NP;
+  static_assert(T::BQ == PACKED_ROWS && !T::SELF, "two consumer warpgroups and a producer");
+  constexpr int Q_PIECE = T::Q_PIECE, KV_PIECE = T::KV_PIECE;
+  constexpr int Q_BYTES = T::Q_BYTES, KV_BYTES = T::KV_BYTES;
+  const int kvh = blockIdx.x, qpk = H / KV;
+  Work w;
+  if (!find_work(blockIdx.y, slots, B, R, BK, nsplit, w)) return;
+
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 4 * NSTG];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;                      // [NP pieces][128 rows][128 B]
+  unsigned char* k_s = smem + Q_BYTES;            // [NSTG][NP pieces][BK rows][128 B]
+  unsigned char* v_s = k_s + NSTG * KV_BYTES;
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + NSTG;
+  uint64_t* k_empty = bars + 1 + 2 * NSTG;
+  uint64_t* v_empty = bars + 1 + 3 * NSTG;
+  const int used = w.nrows * qpk;                          // MMA rows that hold a query
+  const int n_tiles = (w.k_hi - w.k_lo + BK - 1) / BK;     // >= 1
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NSTG; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4 * T::NC);      // lane 0 of each consumer warp
+      mbar_init(&v_empty[s], 4 * T::NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // MMA rows past the box (128 - qpk * R of them) are never loaded: zero
+  // them once, so every product reads finite values
+  for (int e = threadIdx.x; e < NP * (PACKED_ROWS - qpk * R) * 8; e += T::THREADS) {
+    const int pc = e / ((PACKED_ROWS - qpk * R) * 8), rest = e - pc * (PACKED_ROWS - qpk * R) * 8;
+    *reinterpret_cast<uint4*>(q_s + pc * Q_PIECE + (qpk * R) * 128 + rest * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: warp 0's lanes issue the TMA loads ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) mbar_expect_tx(q_full, NP * qpk * R * 128);
+    __syncwarp();
+    if (lane < NP) tma_load(q_s + lane * Q_PIECE, &tq, q_full, lane * BOX, kvh * qpk, w.row0, 0);
+    // lane u loads page u / NP of a tile, piece u % NP; a page past the
+    // table is out of the map's bounds and reads as zeros
+    const int nbox = BK / page * NP, j = lane / NP, pc = lane - j * NP;
+    const int* tbl = tables + (size_t)w.b * n_pp;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % NSTG, ph = (it / NSTG) & 1;
+      const int lp = (w.k_lo + it * BK) / page + j;
+      const int phys = lane < nbox && lp < n_pp ? tbl[lp] : n_pages;
+      const int at = pc * KV_PIECE + j * page * 128;
+      if (lane == 0) {
+        mbar_wait(&k_empty[st], ph ^ 1);
+        mbar_expect_tx(&k_full[st], KV_BYTES);
+      }
+      __syncwarp();
+      if (lane < nbox) tma_load(k_s + st * KV_BYTES + at, &tk, &k_full[st], pc * BOX, kvh, 0, phys);
+      if (lane == 0) {
+        mbar_wait(&v_empty[st], ph ^ 1);
+        mbar_expect_tx(&v_full[st], KV_BYTES);
+      }
+      __syncwarp();
+      if (lane < nbox) tma_load(v_s + st * KV_BYTES + at, &tv, &v_full[st], pc * BOX, kvh, 0, phys);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 MMA rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int tig = lane & 3;
+  if (c * 64 >= used) {
+    // no query in this warpgroup's rows: release each stage as it lands
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % NSTG, ph = (it / NSTG) & 1;
+      mbar_wait(&k_full[st], ph);
+      if (lane == 0) mbar_arrive(&k_empty[st]);
+      mbar_wait(&v_full[st], ph);
+      if (lane == 0) mbar_arrive(&v_empty[st]);
+    }
+    return;
+  }
+  const int mr0 = c * 64 + warp * 16 + (lane >> 2), mr1 = mr0 + 8;   // this thread's MMA rows
+  // a row past the tile's queries takes its last query's position
+  const int qpos0 = w.pos0 + min(mr0 / qpk, w.nrows - 1);
+  const int qpos1 = w.pos0 + min(mr1 / qpk, w.nrows - 1);
+  const int qpos_min = w.pos0 + (c * 64) / qpk;   // first query row of this warpgroup
+
+  float o[HD / 2], m0, m1, l0, l1;
+  mbar_wait(q_full, 0);
+  consume_tiles<T, NSTG, false>(o, m0, m1, l0, l1, smem_u32(q_s) + c * 64 * 128, k_s, v_s,
+                                nullptr, nullptr, k_full, v_full, k_empty, v_empty, n_tiles,
+                                w.k_lo, w.k_hi, qpos0, qpos1, qpos_min, scale_log2,
+                                [](int) {});
+  if (w.nsplit == 1) {
+    // the rows' outputs: MMA row m is query row m / qpk at head kvh * qpk + m % qpk
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const int i0 = mr0 / qpk, i1 = mr1 / qpk;
+    __nv_bfloat16* out0 = out + ((size_t)(w.row0 + i0) * H + kvh * qpk + mr0 - i0 * qpk) * hd;
+    __nv_bfloat16* out1 = out + ((size_t)(w.row0 + i1) * H + kvh * qpk + mr1 - i1 * qpk) * hd;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (col >= hd) break;   // the padded columns of the instance width
+      if (mr0 < used)
+        *reinterpret_cast<uint32_t*>(out0 + col) = pack_f(o[j * 4] * inv0, o[j * 4 + 1] * inv0);
+      if (mr1 < used)
+        *reinterpret_cast<uint32_t*>(out1 + col) = pack_f(o[j * 4 + 2] * inv1, o[j * 4 + 3] * inv1);
+    }
+  } else {
+    // a span's unnormalised output and (m, l) a row, for the merge pass
+    const size_t base = ((size_t)(w.b * nsplit + w.split) * KV + kvh) * PACKED_ROWS;
+    float* po0 = part_o + (base + mr0) * hd;
+    float* po1 = part_o + (base + mr1) * hd;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (col >= hd) break;
+      if (mr0 < used) *reinterpret_cast<float2*>(po0 + col) = make_float2(o[j * 4], o[j * 4 + 1]);
+      if (mr1 < used) *reinterpret_cast<float2*>(po1 + col) = make_float2(o[j * 4 + 2], o[j * 4 + 3]);
+    }
+    if (tig == 0) {
+      if (mr0 < used) *reinterpret_cast<float2*>(part_ml + (base + mr0) * 2) = make_float2(m0, l0);
+      if (mr1 < used) *reinterpret_cast<float2*>(part_ml + (base + mr1) * 2) = make_float2(m1, l1);
+    }
+  }
+}
+
+// The merge pass, one CTA a packed row: a row of no slot (a pad) is
+// written as zeros; a row of a slot whose keys were split into two or more
+// spans is the spans' outputs weighed by 2^(m_s - M) over the same sum of
+// their l, in q's dtype; every other row was written by the main pass.  A
+// thread takes 8 columns of one head at a time and issues the loads of
+// every span at once, so a row costs about one round trip to L2.
+constexpr int MAX_SPLIT = 8;
+constexpr int MERGE_THREADS = 256;
+
+__global__ void __launch_bounds__(MERGE_THREADS)
+packed_chunked_prefill_merge_kernel(const int* __restrict__ slots,
+                                    const float* __restrict__ part_o,
+                                    const float* __restrict__ part_ml,
+                                    __nv_bfloat16* __restrict__ out, int H, int KV, int hd,
+                                    int B, int R, int bk, int nsplit) {
+  const int r = blockIdx.x, width = H * hd;
+  int b = -1, n = 0;
+  for (int s = 0; s < B; ++s) {
+    const int ns = slot_rows(slots, B, s), last = slots[3 * B + s];
+    if (ns > 0 && r > last - ns && r <= last) {
+      b = s;
+      n = ns;
+    }
+  }
+  __nv_bfloat16* row = out + (size_t)r * width;
+  if (b < 0) {
+    for (int e = threadIdx.x * 8; e < width; e += MERGE_THREADS * 8)
+      *reinterpret_cast<uint4*>(row + e) = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  if (n > R) return;
+  int tps, ns;
+  split_keys(slots[b] + n, bk, nsplit, tps, ns);
+  if (ns == 1) return;
+  const int i = r - (slots[3 * B + b] - n + 1), qpk = H / KV, per_head = hd / 8;
+  const size_t stride = (size_t)KV * PACKED_ROWS;   // from one span to the next
+  for (int u = threadIdx.x; u < H * per_head; u += MERGE_THREADS) {
+    const int h = u / per_head, col = (u - h * per_head) * 8, kvh = h / qpk;
+    const size_t base = ((size_t)b * nsplit * KV + kvh) * PACKED_ROWS + i * qpk + h - kvh * qpk;
+    float2 ml[MAX_SPLIT];
+    float4 lo[MAX_SPLIT], hi[MAX_SPLIT];
+#pragma unroll
+    for (int s = 0; s < MAX_SPLIT; ++s) {
+      if (s < ns) {
+        const size_t at = base + s * stride;
+        ml[s] = *reinterpret_cast<const float2*>(part_ml + at * 2);
+        lo[s] = *reinterpret_cast<const float4*>(part_o + at * hd + col);
+        hi[s] = *reinterpret_cast<const float4*>(part_o + at * hd + col + 4);
+      }
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int s = 0; s < MAX_SPLIT; ++s)
+      if (s < ns) mx = fmaxf(mx, ml[s].x);
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, l = 0.f;
+#pragma unroll
+    for (int s = 0; s < MAX_SPLIT; ++s) {
+      if (s < ns) {
+        const float f = ex2(ml[s].x - mx);
+        l += f * ml[s].y;
+        acc[0] += f * lo[s].x;
+        acc[1] += f * lo[s].y;
+        acc[2] += f * lo[s].z;
+        acc[3] += f * lo[s].w;
+        acc[4] += f * hi[s].x;
+        acc[5] += f * hi[s].y;
+        acc[6] += f * hi[s].z;
+        acc[7] += f * hi[s].w;
+      }
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    uint4 v;
+    v.x = pack_f(acc[0] * inv, acc[1] * inv);
+    v.y = pack_f(acc[2] * inv, acc[3] * inv);
+    v.z = pack_f(acc[4] * inv, acc[5] * inv);
+    v.w = pack_f(acc[6] * inv, acc[7] * inv);
+    *reinterpret_cast<uint4*>(row + h * hd + col) = v;
+  }
+}
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -1277,7 +1645,8 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D map (hd, heads, rows, B) over a tensor of `esize`-byte elements
-// whose box is box_cols elements x 1 head x box_rows rows x 1 batch row:
+// whose box is box_cols elements x box_heads heads x box_rows rows x 1
+// batch row:
 // 64 bf16 elements (128 bytes) with 128-byte swizzle, or a whole row of
 // the instance width in one-byte codes unswizzled.  hd is the true head
 // dim: the row's extent and the head stride.  Columns past hd and rows
@@ -1285,14 +1654,15 @@ EncodeTiledFn encode_tiled() {
 // next batch row's data.
 cudaError_t make_map(CUtensorMap* map, const void* base, int esize, int hd, int box_cols,
                      int heads, int rows, int B, long long s_row, long long s_b,
-                     int box_rows) {
+                     int box_rows, int box_heads = 1) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const bool codes = esize == 1;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * esize, (cuuint64_t)s_row * esize,
                                  (cuuint64_t)s_b * esize};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_heads, (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUresult r = enc(map, codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                    4, const_cast<void*>(base), dims, strides, box, estr,
@@ -1366,6 +1736,52 @@ cudaError_t launch_wgmma_hd(int hd, const void* q, const void* k, const void* v,
   if (hd <= 128) return launch_wgmma<TKV, wg::Tile<128, 128>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
   if (hd <= 192) return launch_wgmma<TKV, wg::Tile<192, 64>>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
   return launch_wgmma<TKV, T256>(q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, stream);
+}
+
+// The packed-row body at instance width T::HD, then the merge pass.  q
+// (N, H, hd) with row stride sq (elements) and heads contiguous; pools
+// (n_pages, page, KV, hd) contiguous.  Takes pages of a multiple of 8
+// tokens (a box then starts on a 1024-byte swizzle period) that divide
+// the key tile, and at most 128 query heads a KV head.
+template <typename T>
+cudaError_t launch_packed(const void* q, const void* kp, const void* vp, const void* slots,
+                          const void* tables, void* out, void* part_o, void* part_ml, int N,
+                          int H, int KV, int hd, long long sq, int B, int n_pp, int n_pages,
+                          int page, int nsplit, float scale, cudaStream_t stream) {
+  constexpr int nst = T::stages(false);
+  constexpr size_t smem = T::smem_bytes(nst, false);
+  static_assert(smem <= wg::SMEM_MAX, "a CTA holds at most 227 KB of shared memory");
+  const int qpk = H / KV, R = wg::PACKED_ROWS / qpk;
+  if (R < 1 || page % 8 != 0 || T::BK % page != 0 || nsplit < 1 || nsplit > wg::MAX_SPLIT)
+    return cudaErrorInvalidValue;
+  // q as (hd, H, N, 1), a box of qpk heads x R rows; the pools as (hd,
+  // KV, page, n_pages), a box of one head's page
+  CUtensorMap tq, tk, tv;
+  const long long s_page = (long long)page * KV * hd;
+  cudaError_t err = make_map(&tq, q, 2, hd, wg::BOX, H, N, 1, sq, N * sq, R, qpk);
+  if (err == cudaSuccess)
+    err = make_map(&tk, kp, 2, hd, wg::BOX, KV, page, n_pages, KV * hd, s_page, page);
+  if (err == cudaSuccess)
+    err = make_map(&tv, vp, 2, hd, wg::BOX, KV, page, n_pages, KV * hd, s_page, page);
+  if (err != cudaSuccess) return err;
+  auto kern = wg::packed_chunked_prefill_wgmma_kernel<nst, T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // work items: at most ceil(N / R) + B tiles of slots longer than R rows
+  // and nsplit spans of each other slot
+  dim3 grid(KV, (N + R - 1) / R + B + B * nsplit);
+  kern<<<grid, T::THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<const int*>(slots), static_cast<const int*>(tables),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_o),
+      static_cast<float*>(part_ml), H, KV, hd, B, n_pp, n_pages, page, R, nsplit,
+      scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wg::packed_chunked_prefill_merge_kernel<<<N, wg::MERGE_THREADS, 0, stream>>>(
+      static_cast<const int*>(slots), static_cast<const float*>(part_o),
+      static_cast<const float*>(part_ml), static_cast<__nv_bfloat16*>(out), H, KV, hd, B, R,
+      T::BK, nsplit);
+  return cudaGetLastError();
 }
 
 template <typename TKV>
@@ -1478,5 +1894,35 @@ extern "C" int chunked_prefill_attention(const void* q, const void* k, const voi
     case 1: err = launch_kv<__nv_bfloat16>(body, kv_dtype, q, k, v, offsets, ks, vs, out, B, Tq, S, H, KV, hd, sqb, sqt, skb, sks, scale, s); break;
     default: err = cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+// The packed-row body: a paged engine's packed step's query rows q (N,
+// H, hd) bf16, row stride sq elements, over unscaled bf16 pools (n_pages,
+// page, KV, hd) through the block tables (B, n_pp) int32; slots (4, B)
+// int32: each slot's pos_offset, n_valid, active and last row.  out (N,
+// H, hd) bf16 contiguous, every row written (a row of no slot as zeros);
+// part_o (B * nsplit * KV * 128 * hd) and part_ml (B * nsplit * KV * 128
+// * 2) f32 scratch.  Instances at widths 64, 128 and 192 (hd <= 192);
+// wider rows are refused with cudaErrorInvalidValue, as are pages that
+// are no multiple of 8 or do not divide the key tile (128 keys, 64 at
+// width 192) and more than 128 query heads a KV head.
+extern "C" int packed_chunked_prefill_attention(const void* q, const void* k_pages,
+                                                const void* v_pages, const void* slots,
+                                                const void* tables, void* out, void* part_o,
+                                                void* part_ml, int N, int H, int KV, int hd,
+                                                long long sq, int B, int n_pp, int n_pages,
+                                                int page, int nsplit, float scale,
+                                                void* stream) {
+  if (!supported(hd, H, KV) || hd > 192 || N <= 0 || B <= 0 || n_pp <= 0 || n_pages <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (hd <= 64)
+    err = launch_packed<wg::Tile<64, 128, 2>>(q, k_pages, v_pages, slots, tables, out, part_o, part_ml, N, H, KV, hd, sq, B, n_pp, n_pages, page, nsplit, scale, s);
+  else if (hd <= 128)
+    err = launch_packed<wg::Tile<128, 128>>(q, k_pages, v_pages, slots, tables, out, part_o, part_ml, N, H, KV, hd, sq, B, n_pp, n_pages, page, nsplit, scale, s);
+  else
+    err = launch_packed<wg::Tile<192, 64>>(q, k_pages, v_pages, slots, tables, out, part_o, part_ml, N, H, KV, hd, sq, B, n_pp, n_pages, page, nsplit, scale, s);
   return (int)err;
 }

@@ -13,7 +13,7 @@ import torch
 from repro_torch.core.precision import get_precision
 from repro_torch.kernels import chunked_prefill_attention as _cpa
 from repro_torch.kernels import paged_decode_attention as _pda
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, shapes
 from repro_torch.kernels.ref import take
 
 #: quantization epsilon — the amax floor that keeps scales finite
@@ -132,9 +132,73 @@ def paged_prefill_attention_op(q, k_pages, v_pages, block_tables, offsets,
     return chunked_prefill_attention_op(q, k, v, offsets, ks, vs)
 
 
+def packed_prefill_attention_op(q, k_pages, v_pages, block_tables, slots,
+                                chunk: int, k_scales=None, v_scales=None,
+                                dest=None):
+    """Attention of a paged engine's packed step (``InstanceEngine``'s
+    rows): q (N, H, hd), one row a token, over the page pools that
+    already hold the rows' K/V -> (N, H, hd).  ``slots`` (4, B) int holds
+    each slot's pos_offset, n_valid, active and last row: slot b's rows
+    are the ``n_valid[b]`` ending at row ``last[b]`` (none where it is
+    inactive), at positions ``pos_offset[b]`` onwards, and each attends
+    causally to its slot's keys up to its own position.
+
+    On the card, bf16 queries over an unscaled bf16 pool
+    (``shapes.packed_body``) take the prefill kernel's packed-row body,
+    which reads the pages through the block tables and writes a row of
+    no slot as zeros.  Every other call takes
+    ``packed_prefill_by_scatter`` with the (B, ``chunk``) layout, and
+    ``dest`` (``scatter_rows``), where the caller already has it."""
+    H, hd = q.shape[1:]
+    _, page, KV, _ = k_pages.shape
+    if _route(q) == "cuda" and shapes.packed_body(
+            q.dtype, k_pages.dtype, hd, H, KV, page, k_scales is not None):
+        return _cpa.packed_prefill_attention(q, k_pages, v_pages,
+                                             block_tables, slots)
+    return packed_prefill_by_scatter(q, k_pages, v_pages, block_tables,
+                                     slots, chunk, k_scales, v_scales, dest)
+
+
+def scatter_rows(slots, N: int, chunk: int):
+    """Each of N packed rows' place in the (B, ``chunk``) layout of its
+    slot's queries (``slots`` as ``packed_prefill_attention_op`` takes
+    them), B * chunk for a row of no slot: (N,) int64."""
+    pos_offset, n_valid, active, last = slots.long()
+    B, T = last.shape[0], chunk
+    n = torch.where(active.bool(), n_valid, 0)
+    r = torch.arange(N, device=slots.device)[:, None]
+    inside = (r > (last - n)[None]) & (r <= last[None])       # (N, B)
+    b = inside.int().argmax(1)
+    return torch.where(inside.any(1), b * T + r[:, 0] - (last - n + 1)[b],
+                       B * T)
+
+
+def packed_prefill_by_scatter(q, k_pages, v_pages, block_tables, slots,
+                              chunk: int, k_scales=None, v_scales=None,
+                              dest=None):
+    """``packed_prefill_attention_op`` through the (B, ``chunk``) layout:
+    each slot's rows scattered to its row of a zero (B, chunk) query
+    buffer at ``dest`` (``scatter_rows`` where not given),
+    ``paged_prefill_attention_op`` over the slots' gathered pages, the
+    rows gathered back.  The plain version on CPU tensors, and the path
+    of the pools and shapes the packed-row body does not take.  A row of
+    no slot reads the (B, chunk) layout's last row."""
+    B, T = slots.shape[1], chunk
+    if dest is None:
+        dest = scatter_rows(slots, q.shape[0], chunk)
+    qs = q.new_zeros((B * T + 1,) + q.shape[1:])
+    qs.index_copy_(0, dest, q)            # a pad row to the scratch row
+    y = paged_prefill_attention_op(qs[:B * T].view(B, T, *q.shape[1:]),
+                                   k_pages, v_pages, block_tables,
+                                   slots[0].long(), k_scales, v_scales)
+    return y.reshape(B * T, *q.shape[1:]).index_select(
+        0, dest.clamp(max=B * T - 1))
+
+
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters: each kernel's, and the
-    prefill kernel's by body (``chunked_prefill_attention/<body>``)."""
+    prefill kernel's by body (``chunked_prefill_attention/<body>``, the
+    packed-row body's ``chunked_prefill_attention/packed``)."""
     out = {"paged_decode_attention": _pda.launches,
            "chunked_prefill_attention": _cpa.launches}
     out.update({f"chunked_prefill_attention/{body}": n
@@ -150,6 +214,6 @@ def add_launch_counts(delta: dict) -> None:
         _pda.launches += delta.get("paged_decode_attention", 0)
     with _cpa._counting:
         _cpa.launches += delta.get("chunked_prefill_attention", 0)
-        for body in _cpa.BODIES:
+        for body in _cpa.COUNTED:
             _cpa.body_launches[body] += delta.get(
                 f"chunked_prefill_attention/{body}", 0)

@@ -10,7 +10,9 @@ wrappers, and again by both C entry points in ``csrc/``.
 ``prefill_body`` decides which of its three bodies the prefill kernel
 takes for a call: the wrapper passes the body's code to the C entry
 point, which launches that body or, where it has no instance for the
-call, refuses it.
+call, refuses it.  ``packed_body`` decides whether a packed step's
+attention takes the packed-row body, which reads the page pool through
+the block tables.
 """
 from __future__ import annotations
 
@@ -68,3 +70,27 @@ def prefill_body(q_dtype, kv_dtype, hd: int, scaled: bool) -> str:
         if kv in ("float32", "bfloat16") and hd in MMA_SYNC_HEAD_DIMS:
             return "mma_sync"
     return "tf32"
+
+
+#: the widest row the packed-row body takes (instances 64, 128 and 192)
+PACKED_MAX_HEAD_DIM = 192
+#: MMA rows of the packed-row body's CTA: its query heads a KV head
+#: bound them
+PACKED_ROWS = 128
+
+
+def packed_body(q_dtype, kv_dtype, hd: int, H: int, KV: int, page: int,
+                scaled: bool) -> bool:
+    """Whether the packed-row body of the prefill kernel takes a packed
+    step's attention: bf16 queries on an unscaled bf16 pool (the
+    ``wgmma`` body's serving path, not its one-byte codes) at ``hd`` up
+    to 192, pages of a multiple of 8 tokens (a page's box starts on a
+    1024-byte swizzle period) that divide the key tile (128 keys up to
+    width 128, 64 at 192), and at most 128 query heads a KV head."""
+    if (_dtype_name(q_dtype), _dtype_name(kv_dtype), scaled) != (
+            "bfloat16", "bfloat16", False):
+        return False
+    tile = 128 if hd <= 128 else 64
+    return (supported(hd, H, KV) and hd <= PACKED_MAX_HEAD_DIM
+            and page % 8 == 0 and tile % page == 0
+            and H // KV <= PACKED_ROWS)

@@ -33,8 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import (
-    chunked_prefill_attention_op, gather_pages, gather_scales,
-    paged_decode_attention_op, quantize_kv,
+    packed_prefill_attention_op, paged_decode_attention_op,
+    paged_prefill_attention_op, quantize_kv,
 )
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
@@ -297,19 +297,22 @@ class PackedRows:
     reads it.  ``slot`` and ``pos`` (N,): each row's slot and absolute
     position; ``pos_offset`` and ``last`` (B,): each slot's first
     position and the row of its last token; ``valid`` (N,): the rows that
-    hold a token (a pad row writes nothing); ``T``: the query rows a slot
-    takes in the attention, 1 for the decode-only step (one token a
-    slot, row b is slot b: the paged-decode kernel), else the chunk
-    length the slots' queries are scattered to for the chunked-prefill
-    kernel; ``dest`` (N,): each row's place in that (B, T) layout, B * T
-    for a row that holds no token."""
+    hold a token (a pad row writes nothing); ``slots`` (4, B) int32: each
+    slot's pos_offset, n_valid, active and last, as the packed attention
+    op takes them; ``T``: the query rows a slot takes in the attention, 1
+    for the decode-only step (one token a slot, row b is slot b: the
+    paged-decode kernel), else the chunk length of the (B, T) layout the
+    op scatters the rows to where the packed-row body does not take
+    them; ``dest`` (N,): each row's place in that layout, B * T for a row
+    that holds no token, built once a step for that path."""
     slot: torch.Tensor
     pos: torch.Tensor
     pos_offset: torch.Tensor
     last: torch.Tensor
     valid: torch.Tensor
-    dest: torch.Tensor
+    slots: torch.Tensor
     T: int
+    dest: torch.Tensor
 
 
 def packed_rows(slot, pos, pos_offset, n_valid, active, last,
@@ -325,8 +328,9 @@ def packed_rows(slot, pos, pos_offset, n_valid, active, last,
     r = torch.arange(slot.shape[0], device=slot.device)
     j = r - last[slot] + n_valid.long()[slot] - 1   # index within its item
     valid = active.bool()[slot] & (r <= last[slot]) & (j >= 0)
+    slots = torch.stack([pos_offset, n_valid, active, last]).to(torch.int32)
     return PackedRows(slot, pos.long(), pos_offset.long(), last, valid,
-                      torch.where(valid, slot * T + j, B * T), T)
+                      slots, T, torch.where(valid, slot * T + j, B * T))
 
 
 def rows_write_plan(rows: PackedRows, block_tables, page_size: int,
@@ -442,14 +446,15 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
     ``paged_decode_attention`` with ``lengths = batch_pos[:, 0] + 1``;
     longer chunks (prefill / mixed) gather the slots' pages to a dense
     prefix and run ``chunked_prefill_attention`` with
-    ``offsets = batch_pos[:, 0]``.  On CUDA tensors both are the
-    hand-written kernels; on CPU tensors their plain versions.
+    ``offsets = batch_pos[:, 0]`` (``paged_prefill_attention_op``).  On
+    CUDA tensors both are the hand-written kernels; on CPU tensors their
+    plain versions.
 
     With ``rows`` (a paged engine's packed step) q, k and v are (1, N,
     heads, hd), one row a token: the decode-only step (``rows.T == 1``)
     runs the paged-decode kernel on its rows, one a slot; any other step
-    scatters its query rows into (B, rows.T), runs the chunked-prefill
-    kernel as above, and gathers the output back to rows.
+    runs ``packed_prefill_attention_op`` on its rows (on the card, bf16
+    rows over a bf16 pool read the pages through the block tables).
     Returns (y_pre_wo, cache).
     """
     B, T = batch_pos.shape
@@ -491,19 +496,9 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
         y = paged_decode_attention_op(q[:, 0], ck, cv, block_tables, lengths,
                                       cks, cvs)
         return y.reshape(B, 1, -1), cache
-    y = _prefill_over_pages(q, ck, cv, cks, cvs, block_tables,
-                            batch_pos[:, 0])
+    y = paged_prefill_attention_op(q, ck, cv, block_tables, batch_pos[:, 0],
+                                   cks, cvs)
     return y.reshape(B, T, -1), cache
-
-
-def _prefill_over_pages(q, ck, cv, cks, cvs, block_tables, offsets):
-    """The chunked-prefill kernel of (B, T) queries at ``offsets`` over
-    the slots' pages, gathered to dense per-slot K/V (and scales)."""
-    kg = gather_pages(ck, block_tables)
-    vg = gather_pages(cv, block_tables)
-    ksg = None if cks is None else gather_scales(cks, block_tables)
-    vsg = None if cvs is None else gather_scales(cvs, block_tables)
-    return chunked_prefill_attention_op(q, kg, vg, offsets, ksg, vsg)
 
 
 def _packed_attention(q, ck, cv, cks, cvs, block_tables, rows: PackedRows):
@@ -513,14 +508,10 @@ def _packed_attention(q, ck, cv, cks, cvs, block_tables, rows: PackedRows):
     if rows.T == 1:
         y = paged_decode_attention_op(q, ck, cv, block_tables,
                                       rows.pos_offset + 1, cks, cvs)
-        return y.reshape(N, -1)
-    B, T = block_tables.shape[0], rows.T
-    qs = q.new_zeros((B * T + 1,) + q.shape[1:])
-    qs.index_copy_(0, rows.dest, q)       # a pad row to the scratch row
-    y = _prefill_over_pages(qs[:B * T].view(B, T, *q.shape[1:]), ck, cv,
-                            cks, cvs, block_tables, rows.pos_offset)
-    return y.reshape(B * T, -1).index_select(
-        0, rows.dest.clamp(max=B * T - 1))
+    else:
+        y = packed_prefill_attention_op(q, ck, cv, block_tables, rows.slots,
+                                        rows.T, cks, cvs, rows.dest)
+    return y.reshape(N, -1)
 
 
 def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",

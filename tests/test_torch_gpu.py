@@ -137,6 +137,165 @@ def _pool(x, prec):
         ops.quantize_kv(x, prec)
 
 
+#: The packed-row body against the plain version, per slot, elementwise:
+#: |got - expected| <= PACKED_ULP * (max |expected| of the slot + |expected|).
+#: Both round their f32 result to bf16, so where the two straddle a
+#: rounding boundary they land one bf16 ulp apart, and one ulp of x is at
+#: most 2**-7 |x|: the |expected| term.  The f32 results differ by far
+#: less (P rounded to bf16 before P V errs by about 2**-9 of a term, and
+#: the terms' errors average out over the keys), so the slot's own scale
+#: bounds them with room: the max term, one ulp of the slot's largest
+#: output.  A slot's outputs are about sqrt(e / keys) here (0.02 to 0.05
+#: for 1,000 to 8,000 keys), so the bound is about 1e-3 to 4e-3, where a
+#: unit-scale absolute term would pass a lost page or a misweighted span.
+PACKED_ULP = 2 ** -7
+
+
+def mixed_items(n_pp, n_dec, page=8):
+    """A mixed step at the card benchmark's shape: a 512-token chunk at
+    offset 1000 in slot 1, then ``n_dec`` decode rows of other slots at
+    long contexts spread up to the table's end: (slot, first position,
+    tokens) a slot."""
+    S = n_pp * page
+    return [(1, 1000, 512)] + [
+        (b, S // 2 + (S // 2 - 1) * i // max(1, n_dec - 1), 1)
+        for i, b in enumerate([0] + list(range(2, 2 + n_dec - 1)))]
+
+
+def packed_problem(device, H, KV, hd, n_pp, items, N=520, page=8, B=8,
+                   seed=0):
+    """A packed step's rows: ``items`` (slot, first position, tokens)
+    packed in slot order from row 0 into ``N`` rows (pads at the end; the
+    other slots inactive), over bf16 pools of random pages named by
+    permuted block tables.  Returns q, the pools, the tables, the (4, B)
+    per-slot arrays, the items in row order and the rows they fill."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_pages = B * n_pp + 1
+    kp = torch.randn(n_pages, page, KV, hd, generator=g,
+                     device=device).to(torch.bfloat16)
+    vp = torch.randn(n_pages, page, KV, hd, generator=g,
+                     device=device).to(torch.bfloat16)
+    tbl = torch.randperm(B * n_pp, generator=torch.Generator().manual_seed(
+        seed)).reshape(B, n_pp).to(torch.int32).to(device)
+    q = torch.randn(N, H, hd, generator=g, device=device).to(torch.bfloat16)
+    slots = torch.zeros(4, B, dtype=torch.int32)
+    r = 0
+    for b, off, n in sorted(items):
+        slots[:, b] = torch.tensor([off, n, 1, r + n - 1])
+        r += n
+    return q, kp, vp, tbl, slots.to(device), sorted(items), r
+
+
+def packed_errors(got, q, kp, vp, tbl, items):
+    """Each slot's (largest |got - expected|, largest share of its
+    ``PACKED_ULP`` bound) against the plain version of its attention: its
+    rows as a chunk over its gathered pages; ``items`` in row order."""
+    out, r = [], 0
+    for b, off, n in items:
+        k, v = (ops.gather_pages(t, tbl[b:b + 1]) for t in (kp, vp))
+        exp = ref.chunked_prefill_attention_ref(
+            q[None, r:r + n], k, v,
+            torch.tensor([off], device=q.device)).float()
+        diff = (got[None, r:r + n].float() - exp).abs()
+        lim = PACKED_ULP * (exp.abs().max() + exp.abs())
+        out.append((float(diff.max()), float((diff / lim).max())))
+        r += n
+    return out
+
+
+@pytest.mark.parametrize("H,KV,hd,n_pp,n_dec", [
+    (40, 8, 128, 512, 1),      # the cell: Qwen2.5-14B, 4096-token tables
+    (40, 8, 128, 512, 7),
+    (40, 8, 128, 1024, 3),     # 8192-token tables
+    (40, 8, 128, 1024, 7),
+    (32, 4, 128, 512, 3),      # Qwen3-30B-A3B
+    (20, 4, 128, 512, 3),      # a TP=2 shard of the 14B
+    (96, 8, 192, 256, 2),      # Nemotron-4-340B: width 192, 64-key tiles
+    (8, 2, 32, 256, 2),        # the smoke configs in bf16: width 64
+])
+def test_packed_prefill_body_matches_plain_version(cuda_device, H, KV, hd,
+                                                   n_pp, n_dec):
+    """The packed-row body against the plain version of each slot's
+    attention (its rows as a chunk over its gathered pages) on the card,
+    one 512-token chunk beside ``n_dec`` long-context decode rows (split
+    into key spans and merged), within ``PACKED_ULP`` of the slot's
+    largest output plus one bf16 ulp of each.  Pad rows are zeros; one
+    launch counted under the ``packed`` body and none under the
+    others."""
+    from repro_torch.kernels import chunked_prefill_attention as cpa
+    q, kp, vp, tbl, slots, items, rows = packed_problem(
+        cuda_device, H, KV, hd, n_pp, mixed_items(n_pp, n_dec))
+    before = dict(cpa.body_launches)
+    got = cpa.packed_prefill_attention(q, kp, vp, tbl, slots)
+    torch.cuda.synchronize()
+    assert {b: n - before[b] for b, n in cpa.body_launches.items()} == {
+        **dict.fromkeys(cpa.BODIES, 0), "packed": 1}
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[rows:].any())
+    errs = packed_errors(got, q, kp, vp, tbl, items)
+    assert all(share <= 1.0 for _, share in errs), errs
+
+
+def test_packed_mixed_steps_launch_the_packed_body_and_gather_nothing(
+        cuda_device, monkeypatch):
+    """A bf16 engine on a bf16 pool: a prefill and a mixed step (a chunk
+    beside decode rows) each launch the packed-row body once a layer, the
+    (slots, chunk) path never (no ``gather_pages``, no other prefill
+    body), and the decode-only step the paged-decode kernel alone.  The
+    steps' logits lie within 4 bf16 steps of the largest logit of an
+    engine that takes the scatter path on the same weights: the two
+    attentions' outputs differ by single bf16 roundings, which the
+    layers' bf16 products carry to the logits, as the full-width model
+    check in ``chip_smoke.py`` counts them (``MODEL_TOL``, 3.2 steps)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine import InstanceEngine
+    from repro_torch.kernels import shapes
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models.model import init_params
+    cfg = get_smoke_config("qwen2.5-14b").with_(dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    kw = dict(n_slots=4, max_len=256, max_chunk=64, kv_mode="paged",
+              page_size=8, graphs=False)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 256)).astype(np.int32)
+    steps = [[(0, 0, 64)], [(0, 64, 1), (1, 0, 50), (2, 0, 9)],
+             [(0, 65, 1), (1, 50, 1), (2, 9, 1)]]
+    gathers = []
+    real_gather = ops.gather_pages
+
+    def counted(*a, **k):
+        gathers.append(1)
+        return real_gather(*a, **k)
+
+    monkeypatch.setattr(ops, "gather_pages", counted)
+    eng = InstanceEngine(cfg, params, **kw)
+    for i in range(3):
+        eng.alloc(f"r{i}")
+    got, deltas = [], []
+    for spans in steps:
+        before = launch_counts()
+        got.append(eng.run_batch(_items(toks, spans)))
+        deltas.append({k: n - before[k] for k, n in launch_counts().items()
+                       if n != before[k]})
+    L = cfg.n_layers
+    assert deltas[:2] == [{"chunked_prefill_attention": L,
+                           "chunked_prefill_attention/packed": L}] * 2
+    assert deltas[2] == {"paged_decode_attention": L}
+    assert not gathers
+    monkeypatch.setattr(shapes, "packed_body", lambda *a: False)
+    eng = InstanceEngine(cfg, params, **kw)
+    for i in range(3):
+        eng.alloc(f"r{i}")
+    for spans, out in zip(steps, got):
+        exp = eng.run_batch(_items(toks, spans))
+        for s in exp:
+            step = 2.0 ** (np.floor(np.log2(np.abs(exp[s]).max())) - 7)
+            err = float(np.abs(out[s] - exp[s]).max())
+            assert err <= 4 * step, (s, err / step)
+    assert gathers
+
+
 @pytest.mark.parametrize("prec", [None, "fp8", "int8"])
 def test_split_kv_decode_edges(cuda_device, prec):
     """Split-KV decode at the serve phase's table width (512 pages of 8;

@@ -267,6 +267,69 @@ def test_paged_prefill_unwritten_page_slack_is_masked():
 
 
 # ---------------------------------------------------------------------------
+# a packed step's rows (runner's row layout) over the page pool
+# ---------------------------------------------------------------------------
+#: (page, rows of the step, (slot, pos_offset, tokens, active) in row
+#: order); rows past the items' are pads, as the rung's end holds them
+PACKED_CASES = {
+    "chunk_beside_decodes": (8, 520, [(0, 2303, 1, 1), (2, 96, 512, 1),
+                                      (5, 700, 1, 1)]),
+    "two_chunks": (8, 136, [(0, 0, 64, 1), (3, 37, 64, 1), (4, 9, 1, 1)]),
+    "tail_chunk": (8, 24, [(1, 500, 11, 1), (6, 63, 1, 1)]),
+    "inactive_slots": (8, 40, [(0, 5, 9, 0), (2, 20, 16, 1), (3, 3, 1, 0),
+                               (7, 40, 1, 1)]),
+    "chunk_across_pages": (16, 40, [(1, 13, 30, 1), (2, 70, 1, 1)]),
+    "pad_rows_at_the_rungs_end": (8, 72, [(4, 31, 33, 1)]),
+}
+
+
+def _packed_step(rng, page, N, items, B=8, H=10, KV=2, hd=32):
+    """A packed step's rows, pools, tables and (4, B) per-slot arrays;
+    each slot's table covers its chunk, and the pool's other pages hold
+    values that causal masking must keep out."""
+    n_pp = max(-(-(off + n) // page) for _, off, n, _ in items) + 1
+    n_pages = B * n_pp + 2
+    _, q = _pair(rng, (N, H, hd))
+    _, kp = _pair(rng, (n_pages, page, KV, hd))
+    _, vp = _pair(rng, (n_pages, page, KV, hd))
+    tbl = torch.from_numpy(rng.permutation(n_pages)[:B * n_pp].reshape(
+        B, n_pp).astype(np.int32))
+    slots = torch.zeros(4, B, dtype=torch.int32)
+    r = 0
+    for b, off, n, active in items:
+        slots[:, b] = torch.tensor([off, n, active, r + n - 1])
+        r += n
+    assert r <= N
+    return q, kp, vp, tbl, slots
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_packed_prefill_matches_pallas_slot_by_slot(case):
+    """``packed_prefill_attention_op`` on CPU tensors (its plain version,
+    the scatter to the (B, chunk) layout) against the Pallas kernel run
+    on each active slot alone: the slot's rows as a (1, n) chunk at its
+    pos_offset over its gathered pages.  Rows of inactive slots and pad
+    rows are finite."""
+    page, N, items = PACKED_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, kp, vp, tbl, slots = _packed_step(rng, page, N, items)
+    chunk = max(n for _, _, n, _ in items)
+    got = tops.packed_prefill_attention_op(q, kp, vp, tbl, slots, chunk)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    jk, jv = jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy())
+    r = 0
+    for b, off, n, active in items:
+        if active:
+            jt = jnp.asarray(tbl[b:b + 1].numpy())
+            exp = jops.chunked_prefill_attention_op(
+                jnp.asarray(q[None, r:r + n].numpy()),
+                jops.gather_pages(jk, jt), jops.gather_pages(jv, jt),
+                jnp.asarray([off], jnp.int32), interpret=True)
+            _close(got[None, r:r + n], exp, TOL["float32"])
+        r += n
+
+
+# ---------------------------------------------------------------------------
 # quantized pages
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("prec", ["fp8", "int8"])
@@ -413,6 +476,12 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
                                       torch.zeros(1, 8, 2, 32),
                                       torch.zeros(1, 8, 2, 32),
                                       torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        cpa.packed_prefill_attention(torch.zeros(3, 4, 32,
+                                                 dtype=torch.bfloat16),
+                                     pages.bfloat16(), pages.bfloat16(),
+                                     torch.zeros(1, 2, dtype=torch.int32),
+                                     torch.zeros(4, 1, dtype=torch.int32))
     assert (pda.launches, cpa.launches) == before
     # the op layer sends the same CPU tensors to the plain versions
     out = tops.paged_decode_attention_op(

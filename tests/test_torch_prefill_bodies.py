@@ -148,3 +148,40 @@ def test_prefill_body_rule(q_dtype, kv_dtype, scaled, hd):
     if body == "mma_sync":
         assert kv_dtype in ("float32", "bfloat16")
         assert hd in shapes.MMA_SYNC_HEAD_DIMS
+
+
+#: (q dtype, pool dtype, scaled, hd, H, KV, page) -> whether the packed
+#: step's attention takes the packed-row body
+PACKED_TABLE = (
+    ("bfloat16", "bfloat16", False, 128, 40, 8, 8, True),     # the cell
+    ("bfloat16", "bfloat16", False, 128, 32, 4, 8, True),     # the MoE
+    ("bfloat16", "bfloat16", False, 128, 20, 4, 8, True),     # a TP=2 shard
+    ("bfloat16", "bfloat16", False, 192, 96, 8, 8, True),     # Nemotron
+    ("bfloat16", "bfloat16", False, 32, 8, 2, 8, True),       # smoke, width 64
+    ("bfloat16", "bfloat16", False, 40, 24, 8, 16, True),
+    ("bfloat16", "bfloat16", False, 192, 96, 8, 128, False),  # page > 64 keys
+    ("bfloat16", "bfloat16", False, 128, 40, 8, 4, False),    # page of 4
+    ("bfloat16", "bfloat16", False, 256, 16, 1, 8, False),    # width 256
+    ("bfloat16", "bfloat16", False, 128, 256, 1, 8, False),   # qpk 256
+    ("bfloat16", "float8_e4m3fn", True, 128, 40, 8, 8, False),
+    ("bfloat16", "int8", True, 128, 40, 8, 8, False),
+    ("bfloat16", "bfloat16", True, 128, 40, 8, 8, False),
+    ("float32", "float32", False, 128, 40, 8, 8, False),
+    ("float32", "bfloat16", False, 128, 40, 8, 8, False),
+)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,scaled,hd,H,KV,page,packed",
+                         PACKED_TABLE)
+def test_packed_body_table(q_dtype, kv_dtype, scaled, hd, H, KV, page,
+                           packed):
+    """The packed-row body takes bf16 queries on an unscaled bf16 pool up
+    to hd 192, at pages of 8 to its key tile and up to 128 query heads a
+    KV head; quantized pools and f32 queries keep the gather path."""
+    assert shapes.packed_body(q_dtype, kv_dtype, hd, H, KV, page,
+                              scaled) is packed
+    assert shapes.packed_body(getattr(torch, q_dtype),
+                              getattr(torch, kv_dtype), hd, H, KV, page,
+                              scaled) is packed
+    if packed:
+        assert shapes.prefill_body(q_dtype, kv_dtype, hd, scaled) == "wgmma"
