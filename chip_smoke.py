@@ -1309,12 +1309,14 @@ def run_packed(seed: int, card: str):
         q, kp, vp, tbl, slots, items, _ = packed_problem(
             "cuda", H, KV, hd, n_pp, items, seed=seed)
         before = dict(cpa.body_launches)
+        dest = ops.scatter_rows(slots, q.shape[0], 512)   # once a step
 
         def t_packed():
             return cpa.packed_prefill_attention(q, kp, vp, tbl, slots)
 
         def t_gather():
-            return ops.packed_prefill_by_scatter(q, kp, vp, tbl, slots, 512)
+            return ops.packed_prefill_by_scatter(q, kp, vp, tbl, slots, 512,
+                                                 dest)
 
         t = in_turns({"packed": t_packed, "gather": t_gather}, 20)
         took = {b: n - before[b] for b, n in cpa.body_launches.items()
@@ -2213,7 +2215,7 @@ def launches_by_heads(counts: dict):
              mixers.paged_prefill_attention_op,
              mixers.packed_prefill_attention_op)
     cls = runner.InstanceEngine
-    capture, replay = cls._capture, cls._replay
+    capture, launch = cls._capture, cls._launch
     captured, by_graph = {}, {}      # the running capture's; id(graph) ->
 
     def add(into, key, n):
@@ -2238,22 +2240,23 @@ def launches_by_heads(counts: dict):
         by_graph[id(g)] = dict(captured)
         return g
 
-    def counted_replay(self, T, n_pp, packed, sp=False):
-        out = replay(self, T, n_pp, packed, sp)
-        for key, n in by_graph[id(self._graphs[(T, n_pp)])].items():
-            add(counts, key, n)
+    def counted_launch(self, T, n_pp, packed, sp=False):
+        out = launch(self, T, n_pp, packed, sp)
+        if self.graphs:                  # a replay: its capture's calls
+            for key, n in by_graph[id(self._graphs[(T, n_pp)])].items():
+                add(counts, key, n)
         return out
 
     mixers.paged_decode_attention_op = counted(KERNELS[0], saved[0])
     mixers.paged_prefill_attention_op = counted(KERNELS[1], saved[1])
     mixers.packed_prefill_attention_op = counted(KERNELS[1], saved[2])
-    cls._capture, cls._replay = counted_capture, counted_replay
+    cls._capture, cls._launch = counted_capture, counted_launch
     try:
         yield counts
     finally:
         (mixers.paged_decode_attention_op, mixers.paged_prefill_attention_op,
          mixers.packed_prefill_attention_op) = saved
-        cls._capture, cls._replay = capture, replay
+        cls._capture, cls._launch = capture, launch
 
 
 def by_heads(counts: dict) -> str:

@@ -542,6 +542,16 @@ class EngineBackend(Backend):
         return int(eng.state_bytes(upto, start=start, as_precision="bf16")
                    - eng.state_bytes(upto, start=start))
 
+    @staticmethod
+    def _prefix_skip(src_eng: InstanceEngine, dst_eng: InstanceEngine,
+                     ds: int, upto: int) -> int:
+        """The page-aligned prefix of ``[0, upto)`` that slot ``ds``'s
+        block table already covers (a claimed cached prefix), if paged."""
+        if not (src_eng.paged and dst_eng.allocator is not None):
+            return 0
+        start = min(dst_eng.allocator.len_of(ds), upto)
+        return start - start % src_eng.page_size
+
     def do_handoff(self, src: MicroState, dst: MicroState) -> float:
         """Chunk-wise KV/state handoff from the finished alpha to its
         beta (paper §4.3), on actual page tensors.  When the session
@@ -552,10 +562,7 @@ class EngineBackend(Backend):
         di, ds = self._slots[dst.rid]
         src_eng = self.engines[si]
         dst_eng = self.engines[di]
-        start = 0
-        if src_eng.paged and dst_eng.allocator is not None:
-            start = min(dst_eng.allocator.len_of(ds), src.pos)
-            start -= start % src_eng.page_size
+        start = self._prefix_skip(src_eng, dst_eng, ds, src.pos)
         pieces = src_eng.export_state(ss, upto=src.pos,
                                       chunk=self.transfer_chunk,
                                       start=start)
@@ -580,10 +587,7 @@ class EngineBackend(Backend):
         di, ds = self._slots[dst.rid]
         src_eng = self.engines[si]
         dst_eng = self.engines[di]
-        start = 0
-        if src_eng.paged and dst_eng.allocator is not None:
-            start = min(dst_eng.allocator.len_of(ds), src.pos)
-            start -= start % src_eng.page_size
+        start = self._prefix_skip(src_eng, dst_eng, ds, src.pos)
         if start >= src.pos:
             dst.pos = max(dst.pos, src.pos)
             return None

@@ -5,17 +5,9 @@ One ``InstanceEngine`` is the runtime of one *unified instance* in
 DynaServe terms: it owns a slot-pooled KV/state cache and executes the
 batches the local scheduler composes.  A batch is a set of (slot, token
 span) items — prefill chunks of any length and decode steps (length 1)
-run together in ONE forward call, the paper's unified mixed batch.  A
-paged engine packs the batch's tokens into one stream of rows, rounded
-up to a rung of its row ladder (``row_ladder``), so every token-wise op
-computes the real tokens and few pads; its attention runs the decode
-kernel on the decode-only rung and otherwise scatters the query rows
-into a (slots, chunk) layout for the chunked-prefill kernel.  A
-dense-cache engine (recurrent, ring-buffer, enc-dec and frontend
-architectures, whose scans and ring writes need each slot's sequence)
-pads the batch to (slots, the longest item's bucket), and so does a
-paged mixture of experts whose capacity can drop a token, whose pads
-compete for capacity as the reference's do.
+run together in ONE forward call, the paper's unified mixed batch, laid
+out by the engine's layout (``engine.layout``): packed rows, or (slots,
+the longest item's bucket).
 
 This mirrors ``repro.engine.runner.InstanceEngine`` with its page pool
 and its dense slot cache.  The engine lives on the device of its
@@ -39,20 +31,14 @@ the reference's virtual devices do: the shards time-share the device.
 An engine whose shards all lie on one card (a one-device engine, or a
 sharded one on a repeated device) runs its step as the reference's
 ``jax.jit`` of the step (of ``shard_map`` over it, for a sharded one)
-does: compiled once per ``(rung, n_pp)`` key (``(T, n_pp)`` on a padded
-step) and dispatched without
-waiting.  At a key's first use the engine runs one eager step with every
-slot inactive (every write lands in the caches' scratch rows, so no
-cache byte changes; it builds the kernels and loads what they need
-outside the capture), then captures the step into a CUDA graph in one
-memory pool a device, shared by every engine on it; each later step of
-that key copies its inputs into the graph's static buffer and replays
-it.  A sharded engine's warm-up and capture run on its shard threads,
-each with the capture stream as its current stream, so the graph holds
-every shard's launches and every sum in the order of the eager step;
-a replay runs on the caller's thread and takes no turn.
-``graphs=False`` runs the eager step instead, as a CPU engine and one
-over distinct cards always do (``can_graph``).  ``dispatch_batch``
+does: compiled once per key of its layout, ``(rung, n_pp)`` or ``(T,
+n_pp)``, and dispatched without waiting.  At a key's first use the
+engine captures the step into a CUDA graph (``_capture``: after an
+eager warm-up that changes no cache byte, into one memory pool a
+device); each later step of that key copies its inputs into the graph's
+static buffer and replays it, on the caller's thread with no shard
+turn.  ``graphs=False`` runs the eager step instead, as a CPU engine
+and one over distinct cards always do (``can_graph``).  ``dispatch_batch``
 waits on the device in neither mode: inputs go through pinned host
 buffers with non-blocking copies, and the write plans have static
 shapes.  A graph holds the addresses of the params and caches it read,
@@ -76,13 +62,16 @@ from repro_torch.core.precision import get_precision
 from repro_torch.engine.block_allocator import (
     BlockAllocator, CapacityError, OutOfPages, pages_for,
 )
+from repro_torch.engine.layout import (  # noqa: F401 (row_ladder, rung_chunk)
+    PaddedLayout, RowLayout, bucket_ladder, bucket_of, row_ladder,
+    rung_chunk,
+)
 from repro_torch.engine.prefix_cache import PrefixCache
 from repro_torch.kernels.ops import (
     add_launch_counts, launch_counts, quantize_kv,
 )
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mixers import packed_rows
 from repro_torch.models.model import (
     forward, init_cache, init_paged_cache, supports_paged_kv,
 )
@@ -94,63 +83,6 @@ from repro_torch.utils.sharding import (
 )
 
 DEFAULT_MAX_CHUNK = 512
-
-
-def bucket_ladder(max_chunk: int) -> Tuple[int, ...]:
-    """Power-of-two padding buckets up to (at least) ``max_chunk``."""
-    out, b = [], 1
-    while b < max_chunk:
-        out.append(b)
-        b <<= 1
-    out.append(b)
-    return tuple(out)
-
-
-BUCKETS = bucket_ladder(DEFAULT_MAX_CHUNK)
-
-
-def row_ladder(n_slots: int, max_chunk: int) -> Tuple[int, ...]:
-    """The rungs of a paged engine's packed steps, each a graph key's
-    first half: 1, the decode-only step (one token a slot, ``n_slots``
-    rows), then row counts that a step's tokens round up to.  With C the
-    top of ``bucket_ladder(max_chunk)``: c + ``n_slots`` for each power
-    of two c from 16 to C (a chunk of c tokens beside a decode row of
-    every other slot), 2 C + ``n_slots`` (two whole chunks and the
-    decodes), and ``n_slots`` x C, the largest step the scheduler can
-    compose (a whole chunk a slot), which every smaller rung lies
-    below."""
-    C = bucket_ladder(max_chunk)[-1]
-    top = n_slots * C
-    if C == 1:
-        return (1,)                 # every step is a decode-only step
-    mid = {c + n_slots for c in bucket_ladder(C) if c >= 16}
-    if C >= 16:
-        mid.add(2 * C + n_slots)
-    return (1,) + tuple(sorted(r for r in mid if r < top)) + (top,)
-
-
-def rung_chunk(rung: int, n_slots: int, max_chunk: int) -> int:
-    """The query rows a slot takes in the attention of a packed step of
-    rung ``rung`` (``row_ladder``), which is also the longest item the
-    rung takes: 1 on the decode-only rung, c on rung c + ``n_slots``,
-    and the chunk ladder's top C on 2 C + ``n_slots`` and on the top
-    rung.  A chunk of c tokens beside decode rows thus attends as it
-    does alone in a (``n_slots``, c) step."""
-    if rung == 1:
-        return 1
-    C = bucket_ladder(max_chunk)[-1]
-    if rung == n_slots * C:
-        return C
-    return max(c for c in bucket_ladder(C) if c <= rung - n_slots)
-
-
-def bucket_of(n: int, buckets: Sequence[int] = BUCKETS) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    raise ValueError(
-        f"chunk of {n} tokens exceeds max bucket {buckets[-1]}; "
-        f"construct the engine with max_chunk >= {n}")
 
 
 @dataclasses.dataclass
@@ -238,27 +170,6 @@ def can_graph(devices: Sequence) -> bool:
     return len(distinct) == 1 and distinct.pop().type == "cuda"
 
 
-def _unpack(buf: torch.Tensor, B: int, T: int, n_pp: int):
-    """A padded step's inputs out of one packed int32 buffer: tokens
-    (B, T), pos_offset, n_valid and active (B,) each, and the block
-    tables (B, n_pp) of a paged step (``InstanceEngine._pack`` lays it
-    out)."""
-    tokens = buf[:B * T].view(B, T)
-    pos_offset, n_valid, active = buf[B * T:B * (T + 3)].view(3, B)
-    tables = buf[B * (T + 3):].view(B, n_pp) if n_pp else None
-    return tokens, pos_offset, n_valid, active != 0, tables
-
-
-def _unpack_rows(buf: torch.Tensor, B: int, N: int, n_pp: int):
-    """A paged step's inputs out of one packed int32 buffer: the N rows'
-    tokens, slots and positions (N,) each, then each slot's pos_offset,
-    n_valid, active and last row (B,) each, then the block tables
-    (B, n_pp) (``InstanceEngine._pack`` lays it out)."""
-    tokens, slot, pos = buf[:3 * N].view(3, N)
-    per_slot = buf[3 * N:3 * N + 4 * B].view(4, B)
-    return tokens, slot, pos, per_slot, buf[3 * N + 4 * B:].view(B, n_pp)
-
-
 class InstanceEngine:
     """One unified instance.
 
@@ -283,27 +194,23 @@ class InstanceEngine:
     copy.  Without ``devices`` (or with one) the engine runs on the
     device of its parameters.
 
-    ``packed`` says whether the engine packs its steps into rows: a paged
-    one does unless its mixture of experts can drop a token (capacity
-    factor under E / K), where the pads of a padded step compete for
-    capacity as in the reference.  ``buckets`` is the first half of the
-    step's keys: a packed engine's row ladder (``row_ladder(n_slots,
-    max_chunk)``; a step takes rung 1 when every item is one token, else
-    the least rung that holds its tokens and whose chunk,
-    ``rung_chunks``, holds its longest item), another's T ladder
-    (``chunk_buckets``, ``bucket_ladder(max_chunk)``).  ``graphs`` (on
-    by default) captures the step once per (bucket, n_pp) key where
-    ``can_graph(self.shard_devices)``: every shard on one card.
-    ``self.graphs`` says whether this engine does.
+    ``layout`` (``engine.layout``) lays the steps out, chosen here once:
+    a paged engine packs them into rows (``packed``) unless its mixture
+    of experts can drop a token (capacity factor under E / K); another
+    pads them to (n_slots, T).  ``buckets`` is the layout's ladder, the
+    first half of the step's keys: a packed engine's rungs (each with
+    its chunk, ``rung_chunks``), another's T ladder (``chunk_buckets``).
+    ``graphs`` (on by default) captures the step once per (bucket, n_pp)
+    key where ``can_graph(self.shard_devices)``: every shard on one
+    card.  ``self.graphs`` says whether this engine does.
 
     ``iid`` names the instance in the engine's trace spans and step
     records (``utils.trace``).  A step's record holds ``T``, the longest
     item's bucket in ``buckets`` (1 exactly for a decode-only step), and
-    ``N``, the rows it computed.  Counters, always kept: ``iterations``
-    (steps), ``rows_computed`` (each step's N: ``n_slots`` on the decode
-    rung, the rung on another, ``n_slots`` x T on a padded step, summed
-    over the steps), ``rows_real`` (the steps' tokens), ``replays``
-    (graph replays), ``captures`` and ``capture_seconds``.
+    ``N``, the rows it computed (``layout.rows``).  Counters, always
+    kept: ``iterations`` (steps), ``rows_computed`` (the steps' N),
+    ``rows_real`` (the steps' tokens), ``replays`` (graph replays),
+    ``captures`` and ``capture_seconds``.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -376,11 +283,10 @@ class InstanceEngine:
         self.packed = self.paged and not (
             cfg.moe_experts
             and cfg.moe_capacity_factor * cfg.moe_top_k < cfg.moe_experts)
-        self.buckets = self.chunk_buckets
-        if self.packed:
-            self.buckets = row_ladder(n_slots, max_chunk)
-            self.rung_chunks = {r: rung_chunk(r, n_slots, max_chunk)
-                                for r in self.buckets}
+        self.layout = (RowLayout if self.packed else PaddedLayout)(
+            n_slots, max_chunk)
+        self.buckets = self.layout.buckets
+        self.rung_chunks = getattr(self.layout, "rung_chunks", None)
         # shared-prefix KV cache: trie over the page pool + per-slot
         # claims; the allocator evicts through it under pressure
         self.prefix: Optional[PrefixCache] = None
@@ -599,133 +505,64 @@ class InstanceEngine:
         for items with want_logits."""
         return self.collect_batch(self.dispatch_batch(items))
 
-    def _stage(self, a: np.ndarray, devices) -> Dict[torch.device,
-                                                     torch.Tensor]:
-        """``a`` as a tensor on each of ``devices`` without waiting on a
-        card: copied from a fresh pinned host buffer with
-        ``non_blocking=True`` on the current stream.  The host allocator
-        keeps that buffer until the copy has run, so no later step can
-        refill it first."""
+    def _stage(self, a: np.ndarray, into: Optional[torch.Tensor] = None,
+               sp=False):
+        """``a`` on the engine's devices without waiting on a card:
+        copied from a fresh pinned host buffer (which the host allocator
+        keeps until the copy has run) with ``non_blocking=True`` on the
+        current stream, into ``into`` (a graph's static input) where
+        given, else to each shard's device (a CPU shard takes the host
+        array).  Returns ({device: tensor}, start): with ``sp``, the open
+        ``engine.dispatch`` span, an ``engine.stage`` span and, on a card,
+        a timing event recorded just before the copy; else None."""
+        st = sp and trace.begin("engine.stage", sp[4], self.iid)
         host = torch.from_numpy(np.ascontiguousarray(a))
-        pinned = None
-        out = {}
-        for d in devices:
-            if d.type != "cuda":
-                out[d] = host
-                continue
-            if pinned is None:
-                pinned = host.pin_memory()
-            out[d] = pinned.to(d, non_blocking=True)
-        return out
-
-    def _rows(self, key: int) -> int:
-        """The rows a step of key ``key`` computes: a rung's, or
-        ``n_slots`` x T of a padded step."""
-        if not self.packed:
-            return self.n_slots * key
-        return self.n_slots if key == 1 else key
-
-    def _buffer_len(self, key: int, n_pp: int) -> int:
-        """Length of the packed int32 buffer of a step of key
-        (``key``, ``n_pp``)."""
-        B = self.n_slots
-        if self.packed:
-            return 3 * self._rows(key) + B * (4 + n_pp)
-        return B * (key + 3 + n_pp)
-
-    def _pack(self, items: Sequence[BatchItem], key: int,
-              n_pp: int) -> np.ndarray:
-        """A step's inputs in one int32 buffer of ``_buffer_len``.
-
-        A packed step (``_unpack_rows`` reads it) packs its tokens into
-        one stream of rows, slot by slot, padded to its rung ``key``'s
-        rows: each row's token, slot and absolute position; each slot's
-        pos_offset, n_valid, active and the row of its last token; the
-        block tables padded to ``n_pp`` pages.  The decode-only rung
-        puts slot b's token at row b.  Pad rows are zeros, which
-        ``mixers.packed_rows`` tells apart by the slots' rows.  A padded
-        step (``_unpack``) pads B to ``n_slots`` and T to its bucket
-        ``key``, then the block tables of a paged one."""
-        B = self.n_slots
-        buf = np.zeros(self._buffer_len(key, n_pp), np.int32)
-        if not self.packed:
-            tokens = buf[:B * key].reshape(B, key)
-            pos_off, n_valid, active = buf[B * key:B * (key + 3)].reshape(
-                3, B)
-            for it in items:
-                t = len(it.tokens)
-                tokens[it.slot, :t] = it.tokens
-                pos_off[it.slot] = it.pos_offset
-                n_valid[it.slot] = t
-                active[it.slot] = 1
-            if n_pp:
-                buf[B * (key + 3):] = self.allocator.table_array(
-                    n_pp).reshape(-1)
-            return buf
-        N = self._rows(key)
-        tokens, slot, pos = buf[:3 * N].reshape(3, N)
-        pos_off, n_valid, active, last = buf[3 * N:3 * N + 4 * B].reshape(
-            4, B)
-        r = 0
-        for it in sorted(items, key=lambda it: it.slot):
-            t = len(it.tokens)
-            r0 = it.slot if key == 1 else r
-            tokens[r0:r0 + t] = it.tokens
-            slot[r0:r0 + t] = it.slot
-            pos[r0:r0 + t] = np.arange(it.pos_offset, it.pos_offset + t)
-            pos_off[it.slot] = it.pos_offset
-            n_valid[it.slot] = t
-            active[it.slot] = 1
-            last[it.slot] = r0 + t - 1
-            r += t
-        buf[3 * N + 4 * B:] = self.allocator.table_array(n_pp).reshape(-1)
-        return buf
+        cuda = self.device.type == "cuda"
+        pinned = host.pin_memory() if cuda else host
+        start = None
+        with _on(self.device):
+            if st and cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            if into is not None:
+                into.copy_(pinned, non_blocking=True)
+                out = {self.device: into}
+            else:
+                out = {d: pinned.to(d, non_blocking=True)
+                       for d in dict.fromkeys(self.shard_devices)}
+        if st:
+            trace.end(st)
+        return out, start
 
     def _forward(self, rank: int, buf: torch.Tensor, key: int,
                  n_pp: int) -> torch.Tensor:
         """Shard ``rank``'s step on its packed inputs: (B, vocab) f32
-        last-token logits; the cache is written in place.  A packed step
-        runs on its rows; the attention takes them as a (B, T) chunk of
-        the rung's chunk (``rung_chunk``, ``mixers.PackedRows``), one
-        token a slot on the decode rung."""
-        B = self.n_slots
+        last-token logits; the cache is written in place.  The layout
+        reads the buffer; the cache substrate adds its page size (a
+        paged engine's) or its window (a dense one's)."""
         with torch.no_grad(), _on(self.shard_devices[rank]):
-            if self.packed:
-                N = self._rows(key)
-                tokens, slot, pos, per_slot, tables = _unpack_rows(
-                    buf, B, N, n_pp)
-                logits, _, _ = forward(
-                    self.shard_params[rank], self.cfg, tokens,
-                    cache=self.caches[rank], last_only=True,
-                    rows=packed_rows(slot, pos, *per_slot,
-                                     self.rung_chunks[key]),
-                    block_tables=tables, page_size=self.page_size)
-            else:
-                tokens, pos_off, n_valid, active, tables = _unpack(
-                    buf, B, key, n_pp)
-                kw = ({"block_tables": tables, "page_size": self.page_size}
-                      if self.paged else
-                      {"window_override": self.window_override})
-                logits, _, _ = forward(
-                    self.shard_params[rank], self.cfg, tokens,
-                    cache=self.caches[rank], pos_offset=pos_off,
-                    active=active, n_valid=n_valid, last_only=True, **kw)
+            tokens, kw = self.layout.inputs(buf, key, n_pp)
+            logits, _, _ = forward(
+                self.shard_params[rank], self.cfg, tokens,
+                cache=self.caches[rank], last_only=True,
+                page_size=self.page_size,
+                window_override=self.window_override, **kw)
         return logits[:, 0]
 
     def dispatch_batch(self, items: Sequence[BatchItem]) \
             -> Optional[StepHandle]:
         """Issue one unified mixed batch without waiting for the device.
 
-        All host-side work happens here — packing the tokens into rows
-        padded to the row ladder (``packed``), or padding B to
-        ``n_slots`` and T to the bucket ladder, the block tables to the
-        page ladder, block table growth, staging the inputs, and the
-        step: a replay of the key's graph, or the eager forward (on every
-        shard of a sharded instance; this returns once each shard has
-        enqueued its step) — and the kernels run on while the caller
-        schedules the next batch and pumps KV streams.  A key's first use
-        captures its graph, which waits on the device once.  Returns
-        ``None`` for an empty batch."""
+        All host-side work happens here — laying the batch out in its
+        ``layout`` (rows on the row ladder, or (n_slots, T) on the T
+        ladder), the block tables padded to the page ladder, block table
+        growth, staging the inputs, and the step: a replay of the key's
+        graph, or the eager forward (on every shard of a sharded
+        instance; this returns once each shard has enqueued its step) —
+        and the kernels run on while the caller schedules the next batch
+        and pumps KV streams.  A key's first use captures its graph,
+        which waits on the device once.  Returns ``None`` for an empty
+        batch."""
         if not items:
             return None
         sp = trace.on and trace.begin("engine.dispatch", trace.new_step(),
@@ -733,8 +570,8 @@ class InstanceEngine:
         pk = sp and trace.begin("engine.pack", sp[4], self.iid)
         longest = max(len(it.tokens) for it in items)
         rows = sum(len(it.tokens) for it in items)
-        key = T = bucket_of(longest, self.chunk_buckets)   # or raises
-        n_pp = 0
+        key, T = self.layout.key(longest, rows)     # or raises
+        n_pp, tables = 0, None
         if self.paged:
             # grow block tables to cover every item's span before the
             # write; OutOfPages here means the scheduler overcommitted.
@@ -748,24 +585,14 @@ class InstanceEngine:
                 self._apply_forks(forks)
             n_pp = bucket_of(max(1, self.allocator.max_table_len),
                              self.page_buckets)
-        if self.packed:
-            # the key: the least rung that holds the rows and whose
-            # chunk holds the longest item; the record's T: the longest
-            # item's rung, 1 exactly for a decode-only step
-            T = bucket_of(longest, self.buckets)
-            key = 1 if T == 1 else min(
-                r for r in self.buckets[1:]
-                if r >= rows and self.rung_chunks[r] >= longest)
-        N = self._rows(key)
-        packed = self._pack(items, key, n_pp)
+            tables = self.allocator.table_array(n_pp)
+        N = self.layout.rows(key)
+        packed = self.layout.pack(items, key, tables)
         if pk:
             trace.end(pk)
         captured = (bool(sp) and self.graphs
                     and (key, n_pp) not in self._graphs)
-        if self.graphs:
-            logits, start, launch_ns = self._replay(key, n_pp, packed, sp)
-        else:
-            logits, start, launch_ns = self._eager(key, n_pp, packed, sp)
+        logits, start, launch_ns = self._launch(key, n_pp, packed, sp)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event(enable_timing=bool(sp))
@@ -783,22 +610,6 @@ class InstanceEngine:
             trace.end(sp)
         return handle
 
-    def _eager(self, key: int, n_pp: int, packed: np.ndarray, sp=False):
-        """The eager step on ``packed``: (logits, the start event or None,
-        the ``engine.launch`` span's nanoseconds or False); ``sp``, the
-        open ``engine.dispatch`` span, or False with tracing off."""
-        st = sp and trace.begin("engine.stage", sp[4], self.iid)
-        start = None
-        if st and self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(torch.cuda.current_stream(self.device))
-        bufs = self._stage(packed, dict.fromkeys(self.shard_devices))
-        if st:
-            trace.end(st)
-        la = sp and trace.begin("engine.launch", sp[4], self.iid)
-        logits = self._step(bufs, key, n_pp)
-        return logits, start, la and trace.end(la)
-
     def _step(self, bufs: Dict[torch.device, torch.Tensor], key: int,
               n_pp: int, stream=None) -> torch.Tensor:
         """Every shard's step on its device's packed inputs ``bufs``;
@@ -815,27 +626,26 @@ class InstanceEngine:
         on = None if stream is None else (lambda r: torch.cuda.stream(stream))
         return self._group.run(step, on)[0]
 
-    def _replay(self, key: int, n_pp: int, packed: np.ndarray, sp=False):
-        """Run the key's graph on ``packed`` (capturing it at first use):
-        copy the inputs into its static buffer, replay, and clone the
-        logits out, all on the current stream.  Returns what ``_eager``
-        returns."""
-        g = self._graphs.get((key, n_pp)) or self._capture(key, n_pp)
-        st = sp and trace.begin("engine.stage", sp[4], self.iid)
-        pinned = torch.from_numpy(packed).pin_memory()
-        start = None
-        with _on(self.device):
-            if st:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            g.inputs.copy_(pinned, non_blocking=True)
-            if st:
-                trace.end(st)
-            la = sp and trace.begin("engine.launch", sp[4], self.iid)
-            g.graph.replay()
-            logits = g.logits.clone()
-        add_launch_counts(g.launches)
-        self.replays += 1
+    def _launch(self, key: int, n_pp: int, packed: np.ndarray, sp=False):
+        """The step on ``packed``: on a graphed engine a replay of the
+        key's graph (captured at first use), its inputs staged into the
+        graph's static buffer and its logits cloned out, all on the
+        current stream; else the eager forward.  Returns (logits, the
+        start event or None, the ``engine.launch`` span's nanoseconds or
+        False); ``sp``, the open ``engine.dispatch`` span, or False with
+        tracing off."""
+        g = self.graphs and (self._graphs.get((key, n_pp))
+                             or self._capture(key, n_pp))
+        bufs, start = self._stage(packed, g.inputs if g else None, sp)
+        la = sp and trace.begin("engine.launch", sp[4], self.iid)
+        if g:
+            with _on(self.device):
+                g.graph.replay()
+                logits = g.logits.clone()
+            add_launch_counts(g.launches)
+            self.replays += 1
+        else:
+            logits = self._step(bufs, key, n_pp)
         return logits, start, la and trace.end(la)
 
     def _capture(self, key: int, n_pp: int) -> _Graph:
@@ -864,7 +674,7 @@ class InstanceEngine:
             before = launch_counts()
             caller = torch.cuda.current_stream(dev)
             try:
-                inputs = torch.zeros(self._buffer_len(key, n_pp),
+                inputs = torch.zeros(self.layout.buffer_len(key, n_pp),
                                      dtype=torch.int32, device=dev)
                 bufs = {dev: inputs}
                 stream = _capture_stream(dev)
@@ -926,9 +736,8 @@ class InstanceEngine:
         may write its private copy without touching the shared
         original.  The page ids are staged like a step's inputs."""
         n = len(forks)
-        ids = self._stage(np.asarray([o for o, _ in forks]
-                                     + [w for _, w in forks], np.int64),
-                          dict.fromkeys(self.shard_devices))
+        ids, _ = self._stage(np.asarray([o for o, _ in forks]
+                                        + [w for _, w in forks], np.int64))
         for cache, dev in zip(self.caches, self.shard_devices):
             old_ids, new_ids = ids[dev][:n], ids[dev][n:]
             for blk in cache["blocks"]:
@@ -1074,8 +883,7 @@ class InstanceEngine:
         per_piece = pages_for(chunk, page) if chunk else max(1, n_need)
         for p0 in range(start // page, max(1, n_need), per_piece):
             p1 = min(p0 + per_piece, n_need)
-            ids = self._stage(np.asarray(table[p0:p1], np.int64),
-                              dict.fromkeys(self.shard_devices))
+            ids, _ = self._stage(np.asarray(table[p0:p1], np.int64))
             piece = {"span": (p0 * page, min(p1 * page, upto)),
                      "page_size": page, "pages": [],
                      "precision": self.kv_precision.name}
@@ -1213,8 +1021,7 @@ class InstanceEngine:
                     parts[i][key].append(to_torch(a, self.device))
         if not all_ids:
             return
-        ids = self._stage(np.concatenate(all_ids),
-                          dict.fromkeys(self.shard_devices))
+        ids, _ = self._stage(np.concatenate(all_ids))
         for i, part in enumerate(parts):
             for key in keys:
                 src = torch.cat([as_indexable(a) for a in part[key]], dim=1)

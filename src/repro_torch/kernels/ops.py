@@ -133,8 +133,8 @@ def paged_prefill_attention_op(q, k_pages, v_pages, block_tables, offsets,
 
 
 def packed_prefill_attention_op(q, k_pages, v_pages, block_tables, slots,
-                                chunk: int, k_scales=None, v_scales=None,
-                                dest=None):
+                                chunk: int, dest, k_scales=None,
+                                v_scales=None):
     """Attention of a paged engine's packed step (``InstanceEngine``'s
     rows): q (N, H, hd), one row a token, over the page pools that
     already hold the rows' K/V -> (N, H, hd).  ``slots`` (4, B) int holds
@@ -147,8 +147,8 @@ def packed_prefill_attention_op(q, k_pages, v_pages, block_tables, slots,
     (``shapes.packed_body``) take the prefill kernel's packed-row body,
     which reads the pages through the block tables and writes a row of
     no slot as zeros.  Every other call takes
-    ``packed_prefill_by_scatter`` with the (B, ``chunk``) layout, and
-    ``dest`` (``scatter_rows``), where the caller already has it."""
+    ``packed_prefill_by_scatter`` with the (B, ``chunk``) layout and each
+    row's place in it, ``dest`` (``scatter_rows``, built once a step)."""
     H, hd = q.shape[1:]
     _, page, KV, _ = k_pages.shape
     if _route(q) == "cuda" and shapes.packed_body(
@@ -156,13 +156,15 @@ def packed_prefill_attention_op(q, k_pages, v_pages, block_tables, slots,
         return _cpa.packed_prefill_attention(q, k_pages, v_pages,
                                              block_tables, slots)
     return packed_prefill_by_scatter(q, k_pages, v_pages, block_tables,
-                                     slots, chunk, k_scales, v_scales, dest)
+                                     slots, chunk, dest, k_scales, v_scales)
 
 
 def scatter_rows(slots, N: int, chunk: int):
     """Each of N packed rows' place in the (B, ``chunk``) layout of its
     slot's queries (``slots`` as ``packed_prefill_attention_op`` takes
-    them), B * chunk for a row of no slot: (N,) int64."""
+    them), B * chunk for a row of no slot: (N,) int64.  A packed step
+    builds it once (``mixers.packed_rows``), which also reads from it
+    the rows that hold a token."""
     pos_offset, n_valid, active, last = slots.long()
     B, T = last.shape[0], chunk
     n = torch.where(active.bool(), n_valid, 0)
@@ -174,18 +176,16 @@ def scatter_rows(slots, N: int, chunk: int):
 
 
 def packed_prefill_by_scatter(q, k_pages, v_pages, block_tables, slots,
-                              chunk: int, k_scales=None, v_scales=None,
-                              dest=None):
+                              chunk: int, dest, k_scales=None,
+                              v_scales=None):
     """``packed_prefill_attention_op`` through the (B, ``chunk``) layout:
     each slot's rows scattered to its row of a zero (B, chunk) query
-    buffer at ``dest`` (``scatter_rows`` where not given),
+    buffer at ``dest`` (``scatter_rows``),
     ``paged_prefill_attention_op`` over the slots' gathered pages, the
     rows gathered back.  The plain version on CPU tensors, and the path
     of the pools and shapes the packed-row body does not take.  A row of
     no slot reads the (B, chunk) layout's last row."""
     B, T = slots.shape[1], chunk
-    if dest is None:
-        dest = scatter_rows(slots, q.shape[0], chunk)
     qs = q.new_zeros((B * T + 1,) + q.shape[1:])
     qs.index_copy_(0, dest, q)            # a pad row to the scratch row
     y = paged_prefill_attention_op(qs[:B * T].view(B, T, *q.shape[1:]),

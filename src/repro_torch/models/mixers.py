@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import (
     packed_prefill_attention_op, paged_decode_attention_op,
-    paged_prefill_attention_op, quantize_kv,
+    paged_prefill_attention_op, quantize_kv, scatter_rows,
 )
 from repro_torch.kernels.ref import as_indexable
 from repro_torch.models.config import ModelConfig
@@ -293,21 +293,20 @@ def paged_write_plan(batch_pos, block_tables, page_size: int, n_pages: int,
 @dataclasses.dataclass
 class PackedRows:
     """A paged engine's step with its tokens packed into one stream of N
-    rows (``engine.runner.InstanceEngine``'s row layout), as the forward
-    reads it.  ``slot`` and ``pos`` (N,): each row's slot and absolute
-    position; ``pos_offset`` and ``last`` (B,): each slot's first
-    position and the row of its last token; ``valid`` (N,): the rows that
-    hold a token (a pad row writes nothing); ``slots`` (4, B) int32: each
-    slot's pos_offset, n_valid, active and last, as the packed attention
-    op takes them; ``T``: the query rows a slot takes in the attention, 1
-    for the decode-only step (one token a slot, row b is slot b: the
-    paged-decode kernel), else the chunk length of the (B, T) layout the
-    op scatters the rows to where the packed-row body does not take
-    them; ``dest`` (N,): each row's place in that layout, B * T for a row
-    that holds no token, built once a step for that path."""
+    rows (``engine.layout.RowLayout``), as the forward reads it.
+    ``slot`` and ``pos`` (N,): each row's slot and absolute position;
+    ``last`` (B,): the row of each slot's last token; ``valid`` (N,): the
+    rows that hold a token (a pad row writes nothing); ``slots`` (4, B)
+    int32: each slot's pos_offset, n_valid, active and last, the engine's
+    own block, as the packed attention op takes them; ``T``: the query
+    rows a slot takes in the attention, 1 for the decode-only step (one
+    token a slot, row b is slot b: the paged-decode kernel), else the
+    chunk length of the (B, T) layout the op scatters the rows to where
+    the packed-row body does not take them; ``dest`` (N,): each row's
+    place in that layout (``ops.scatter_rows``), B * T for a row that
+    holds no token, built once a step."""
     slot: torch.Tensor
     pos: torch.Tensor
-    pos_offset: torch.Tensor
     last: torch.Tensor
     valid: torch.Tensor
     slots: torch.Tensor
@@ -315,22 +314,17 @@ class PackedRows:
     dest: torch.Tensor
 
 
-def packed_rows(slot, pos, pos_offset, n_valid, active, last,
-                T: int) -> PackedRows:
+def packed_rows(slot, pos, slots, T: int) -> PackedRows:
     """The ``PackedRows`` of a step from its per-row ``slot`` and ``pos``
-    (N,) and per-slot ``pos_offset``, ``n_valid``, ``active`` and ``last``
-    (B,) int tensors.  A slot's tokens are the ``n_valid`` rows that end
-    at its ``last``; every other row (a pad, or any row of a step whose
-    slots are all inactive, such as the all-zero inputs of a graph's
-    warm-up) is invalid, whatever its slot and position say."""
-    slot, last = slot.long(), last.long()
-    B = last.shape[0]
-    r = torch.arange(slot.shape[0], device=slot.device)
-    j = r - last[slot] + n_valid.long()[slot] - 1   # index within its item
-    valid = active.bool()[slot] & (r <= last[slot]) & (j >= 0)
-    slots = torch.stack([pos_offset, n_valid, active, last]).to(torch.int32)
-    return PackedRows(slot, pos.long(), pos_offset.long(), last, valid,
-                      slots, T, torch.where(valid, slot * T + j, B * T))
+    (N,) int tensors and its (4, B) int32 per-slot block ``slots``
+    (pos_offset, n_valid, active and last), kept as it is.  A slot's
+    tokens are the ``n_valid`` rows that end at its ``last``; every other
+    row (a pad, or any row of a step whose slots are all inactive, such
+    as the all-zero inputs of a graph's warm-up) is invalid, whatever its
+    slot and position say."""
+    dest = scatter_rows(slots, slot.shape[0], T)
+    return PackedRows(slot.long(), pos.long(), slots[3].long(),
+                      dest < slots.shape[1] * T, slots, T, dest)
 
 
 def rows_write_plan(rows: PackedRows, block_tables, page_size: int,
@@ -434,9 +428,8 @@ def _write_mask(B: int, T: int, device, active, token_mask):
     return wmask
 
 
-def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
-                         block_tables, page_size: int, active, token_mask,
-                         plan=None, rows: Optional[PackedRows] = None):
+def _paged_attention_fwd(q, k, v, cache, batch_pos, block_tables, plan,
+                         rows: Optional[PackedRows] = None):
     """Attention over a paged KV pool (the DynaServe serving hot path).
 
     The chunk's K/V is written in place into the physical pages the
@@ -455,16 +448,13 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
     runs the paged-decode kernel on its rows, one a slot; any other step
     runs ``packed_prefill_attention_op`` on its rows (on the card, bf16
     rows over a bf16 pool read the pages through the block tables).
-    Returns (y_pre_wo, cache).
+    ``plan`` is the write plan (``paged_write_plan``, or
+    ``rows_write_plan`` for ``rows``) that ``attention_fwd`` builds once a
+    step.  Returns (y_pre_wo, cache).
     """
     B, T = batch_pos.shape
     KV, hd = k.shape[2], k.shape[3]
     ck, cv = cache["k_pages"], cache["v_pages"]
-    if plan is None:
-        plan = (rows_write_plan(rows, block_tables, page_size, ck.shape[0])
-                if rows is not None else
-                paged_write_plan(batch_pos, block_tables, page_size,
-                                 ck.shape[0], active, token_mask))
     phys, within = plan
     kw = k.reshape(B * T, KV, hd)
     vw = v.reshape(B * T, KV, hd)
@@ -488,30 +478,19 @@ def _paged_attention_fwd(p, q, k, v, cfg: ModelConfig, cache, batch_pos,
         put(ck, kw)
         put(cv, vw)
         cks = cvs = None
-    if rows is not None:
-        return _packed_attention(q[0], ck, cv, cks, cvs, block_tables,
-                                 rows)[None], cache
-    if T == 1:
-        lengths = batch_pos[:, 0] + 1
-        y = paged_decode_attention_op(q[:, 0], ck, cv, block_tables, lengths,
+    if (T if rows is None else rows.T) == 1:
+        # one query a slot (the decode rung's row b is slot b), at the
+        # row's own position
+        y = paged_decode_attention_op(q.reshape(B * T, *q.shape[2:]), ck, cv,
+                                      block_tables, batch_pos.reshape(-1) + 1,
                                       cks, cvs)
-        return y.reshape(B, 1, -1), cache
-    y = paged_prefill_attention_op(q, ck, cv, block_tables, batch_pos[:, 0],
-                                   cks, cvs)
-    return y.reshape(B, T, -1), cache
-
-
-def _packed_attention(q, ck, cv, cks, cvs, block_tables, rows: PackedRows):
-    """Attention of a packed step's query rows q (N, H, hd) over the pool
-    that already holds their K/V: (N, H * hd)."""
-    N = q.shape[0]
-    if rows.T == 1:
-        y = paged_decode_attention_op(q, ck, cv, block_tables,
-                                      rows.pos_offset + 1, cks, cvs)
+    elif rows is not None:
+        y = packed_prefill_attention_op(q[0], ck, cv, block_tables, rows.slots,
+                                        rows.T, rows.dest, cks, cvs)
     else:
-        y = packed_prefill_attention_op(q, ck, cv, block_tables, rows.slots,
-                                        rows.T, cks, cvs, rows.dest)
-    return y.reshape(N, -1)
+        y = paged_prefill_attention_op(q, ck, cv, block_tables,
+                                       batch_pos[:, 0], cks, cvs)
+    return y.reshape(B, T, -1), cache
 
 
 def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
@@ -584,9 +563,8 @@ def attention_fwd(p, x, cfg: ModelConfig, *, kind: str = "attn",
                 if rows is not None else
                 paged_write_plan(batch_pos, block_tables, page_size,
                                  n_pages, active, token_mask))
-        y, cache = _paged_attention_fwd(
-            p, q, k, v, cfg, cache, batch_pos, block_tables, page_size,
-            active, token_mask, plan=plans["paged"], rows=rows)
+        y, cache = _paged_attention_fwd(q, k, v, cache, batch_pos,
+                                        block_tables, plans["paged"], rows)
         return _attn_out(y, p, cfg), cache
 
     seq = _seq_shard()

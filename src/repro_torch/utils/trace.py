@@ -34,7 +34,7 @@ counted among its device operations.
 Spans (name: where; what it covers):
 
     engine.dispatch  InstanceEngine.dispatch_batch: the whole call
-    engine.pack        allocator.ensure, _apply_forks, _pack
+    engine.pack        allocator.ensure, _apply_forks, layout.pack
     engine.stage       pin_memory and the inputs' H2D enqueue
     engine.launch      graph replay (or the eager forward) and the
                        logits clone

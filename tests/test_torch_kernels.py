@@ -314,7 +314,8 @@ def test_packed_prefill_matches_pallas_slot_by_slot(case):
     rng = np.random.default_rng(len(case))
     q, kp, vp, tbl, slots = _packed_step(rng, page, N, items)
     chunk = max(n for _, _, n, _ in items)
-    got = tops.packed_prefill_attention_op(q, kp, vp, tbl, slots, chunk)
+    got = tops.packed_prefill_attention_op(
+        q, kp, vp, tbl, slots, chunk, tops.scatter_rows(slots, N, chunk))
     assert got.shape == q.shape and bool(torch.isfinite(got).all())
     jk, jv = jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy())
     r = 0
